@@ -1,15 +1,14 @@
-"""DH3D-TPU: a TPU-native (JAX/XLA/Pallas) point-cloud feature framework.
+"""DH3D in JAX: a point-cloud feature framework.
 
 Re-implements the full capability surface of DH3D ("Deep Hierarchical 3D
-Descriptors for Robust Large-Scale 6DoF Relocalization", ECCV 2020) with a
-TPU-first design: every custom CUDA op of the reference becomes a fused
-XLA/Pallas formulation over static-shape, fixed-K neighborhoods; the model is
-one jit-compiled forward pass; training is data-parallel over a
-`jax.sharding.Mesh`.
+Descriptors for Robust Large-Scale 6DoF Relocalization", ECCV 2020): every
+custom CUDA op of the reference becomes an XLA formulation over
+static-shape, fixed-K neighborhoods (FPS is a Pallas Triton kernel on the
+GPU); the model is one jit-compiled forward pass; training is
+data-parallel over a `jax.sharding.Mesh`.
 
-Layout convention: this framework is channel-LAST ([B, N, C]) end to end —
-the natural layout for TPU (C maps to the 128-wide lane dimension) — whereas
-the reference CUDA ops are channel-first ([B, C, N]). Docstrings cite the
+Layout convention: this framework is channel-LAST ([B, N, C]) end to end,
+whereas the reference CUDA ops are channel-first ([B, C, N]). Docstrings cite the
 reference files that define each op's ground-truth semantics.
 """
 

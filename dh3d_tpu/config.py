@@ -62,15 +62,11 @@ def basic_config():
         search_r=20.0,
         local_loss_weight=1.0,
         savemodel_every_k_steps=200,
-        # TPU-native extras (greenfield; see SURVEY.md §2.3)
+        # extensions beyond the reference (see SURVEY.md §2.3)
         num_devices=1,          # data-parallel mesh size
-        compute_dtype="float32",  # 'bfloat16' for the fast path
-        # BN stats are global-batch (sync) for free under the global-view
-        # jit trainer; bn_axis_name is only for shard_map trainers that
-        # bind a named 'data' axis (see nn/model.py).
-        bn_axis_name=None,
+        compute_dtype="float32",  # 'bfloat16' for mixed precision
         # all-gather global descriptors across the mesh and mine hardest
-        # negatives over the global batch (north-star item; greenfield)
+        # negatives over the global batch
         cross_device_mining=False,
         augment_on_device=False,  # jitted augmentation (global training)
         remat=False,              # rematerialize the backbone in backward
@@ -79,32 +75,13 @@ def basic_config():
         device_pairgen=False,
         rot_maxv=3.141592653589793,
         prefetch=2,               # host batch prefetch depth (0 = off)
-        # Morton-order locality mode (DEFAULT): sort clouds along the
-        # Z-order curve and use the banded one-hot-matmul kernels instead
-        # of XLA gathers (TPU fast path).  Falls back to the gather path
-        # automatically when N is not 256-divisible or on non-TPU
-        # backends.
+        # run the forward on clouds sorted along the Z-order curve (FPS
+        # keeps the sorted order); outputs return in input order in eval
         morton_order=True,
-        # Exact neighbor semantics under morton_order (DEFAULT): true kNN
-        # everywhere + slot-compacted delivery of out-of-band neighbor
-        # contributions — same candidate sets as the gather/parity path.
-        # False = legacy approximate mode (banded kNN, in-band candidates
-        # only; ~4-9% of neighbors replaced; see docs/ERROR_BUDGET.md).
-        morton_exact=True,
         # input clouds (and any sample/knn indices) are already Z-order
         # sorted by the loader; skip the in-graph sort (training only)
         morton_presorted=False,
-        # multiplier on the out-of-band plan capacities (per-tile window
-        # AND global cap; banded_pallas.py:oob_plan).  Raise when the
-        # oob_overflow invariant fires (train/trainer.py
-        # check_oob_overflow) on data denser than the demo-cloud-tuned
-        # defaults — exactness is then restored with no code edit.
-        oob_cap_scale=1.0,
         grad_clip_norm=None,      # optional global-norm gradient clip
-        # single-bf16-plane moments backward (threaded statically through
-        # the model into the kernel's bwd_lo argument): ~3e-3 relative
-        # gradient rounding for half the flex-conv backward-kernel work
-        fast_grads=False,
     )
 
 
@@ -186,5 +163,8 @@ def save_config(cfg: dotdict, path: str):
 
 
 def load_config(path: str) -> dotdict:
+    """Configs saved before a key was retired still load: the model reads
+    only the keys it knows (e.g. `morton_exact`, `oob_cap_scale`,
+    `fast_grads` in `models/demo_stage*.config.json`)."""
     with open(path) as f:
         return dotdict(json.load(f))

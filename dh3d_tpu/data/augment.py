@@ -3,7 +3,7 @@
 Host (numpy) versions mirror `core/augment.py` (from 3DFeatNet) with the
 same distributions/defaults; each also has an on-device JAX counterpart
 (`jax_*`) so the whole augmentation pipeline can run inside the jitted
-train step — a TPU-native upgrade (the reference augments per-cloud in the
+train step — an upgrade (the reference augments per-cloud in the
 Python dataflow, a host hot loop, SURVEY.md §3.1).
 """
 
@@ -141,8 +141,8 @@ def jax_rotate_z(key, data):
     a = jax.random.uniform(key) * 2 * jnp.pi
     c, s = jnp.cos(a), jnp.sin(a)
     rot = jnp.array([[c, s, 0.0], [-s, c, 0.0], [0.0, 0.0, 1.0]])
-    # precision: the TPU default matmul is one-pass bf16, which would
-    # quantize rotated coordinates at ~0.4% (~0.2 m on raw clouds)
+    # precision: the default on a GPU (TF32, 10 mantissa bits) would
+    # quantize rotated coordinates (~5 cm at 100 m)
     return jnp.matmul(data, rot, precision="highest")
 
 

@@ -86,13 +86,13 @@ class LocalTrainSelfPair:
             anc_inds = subset[node_sub]
             pos_inds = native.nn1(pc1[anc_inds], pc2)
         else:
-            from sklearn.neighbors import KDTree
+            from scipy.spatial import cKDTree
 
             node_sub = FarthestSampler().sample(
                 pc1[subset], self.sample_nodes, self.rng
             )
             anc_inds = subset[node_sub]
-            _, pos_inds = KDTree(pc2).query(pc1[anc_inds], k=1)
+            _, pos_inds = cKDTree(pc2).query(pc1[anc_inds], k=1)
         return pc1, pc2_t, rot, anc_inds.astype(np.int32), \
             np.asarray(pos_inds).flatten().astype(np.int32)
 
@@ -263,7 +263,7 @@ class LocalTestDataset:
         return len(self.files)
 
     def __iter__(self):
-        from sklearn.neighbors import NearestNeighbors
+        from scipy.spatial import cKDTree
 
         for pcfile in self.files:
             cloud = load_single_pcfile(pcfile, dim=self.dim)
@@ -279,9 +279,8 @@ class LocalTestDataset:
                 cloud = cloud[choice, :]
             ret = [cloud, os.path.basename(pcfile), ori_num]
             if self.knn > 0:
-                nbrs = NearestNeighbors(
-                    n_neighbors=self.knn, algorithm="ball_tree").fit(cloud)
-                _, knn_ind = nbrs.kneighbors(cloud)
+                _, knn_ind = cKDTree(cloud).query(
+                    cloud, k=list(range(1, self.knn + 1)))
                 ret.append(knn_ind.astype(np.int32))
             yield ret
 

@@ -1,10 +1,10 @@
 """On-device local-pair generation.
 
-TPU-native replacement for the host hot loop of the local self-pair
+Device replacement for the host hot loop of the local self-pair
 sampler (`core/datasets.py:126-151`): the random 1-D z-rotation, the
 FPS anchor-node sampling over a random half subset, and the 1-NN
-correspondence search all run *inside the jitted train step* (FPS via the
-Pallas kernel, 1-NN via the streaming-min knn kernel), so the host only
+correspondence search all run *inside the jitted train step* (FPS via
+`ops.farthest_point_sample`, 1-NN via the knn op), so the host only
 loads + fixed-size-normalizes clouds and the pair-generation cost rides
 the accelerator instead of serializing with it.
 

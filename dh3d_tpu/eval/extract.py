@@ -38,22 +38,16 @@ def _cfg_digest(cfg):
 
 
 def make_forward(cfg, variables, model=None):
-    """Jitted inference forward: points [B, N, 3] -> outs dict.
-
-    The returned outs carry `oob_overflow` = TOTAL out-of-band plan drops
-    across every neighborhood level (the "diagnostics" collection sown in
-    nn/model.py + nn/backbones.py) — extract_local/extract_global hard-fail
-    on nonzero, so an 'exact' Morton extraction can never silently degrade.
-    """
+    """Jitted inference forward: points [B, N, 3] -> outs dict."""
     import jax
 
     from dh3d_tpu.nn import DH3D
 
     # Eval clouds are never host-presorted; a checkpoint trained with
-    # morton_presorted must fall back to the in-graph Z-order sort (exact
-    # and order-invariant) or banded kNN would run over arbitrary index
-    # order and silently degrade every neighborhood.  cfg is shared by
-    # reference with any caller-constructed model, so this covers both.
+    # morton_presorted must fall back to the in-graph Z-order sort, or the
+    # stages would keep an arbitrary order where the config promises the
+    # sorted one.  cfg is shared by reference with any caller-constructed
+    # model, so this covers both.
     if cfg.morton_presorted:
         cfg.morton_presorted = False
 
@@ -67,37 +61,16 @@ def make_forward(cfg, variables, model=None):
     # multi-MB weight constants embedded in the executable.
     cached = _APPLY_CACHE.get(key)
     if cached is None or (key[0] == "model" and cached[0] is not model):
-        import jax.numpy as jnp
-
         @jax.jit
         def _fwd(variables, points, knn_inds=None):
-            outs, mutated = model.apply(
-                variables, points, knn_inds=knn_inds, train=False,
-                mutable=["diagnostics"])
-            diag = jax.tree_util.tree_leaves(
-                mutated.get("diagnostics", {}))
-            outs["oob_overflow"] = sum(
-                (jnp.sum(x) for x in diag), jnp.zeros((), jnp.int32))
-            return outs
+            return model.apply(variables, points, knn_inds=knn_inds,
+                               train=False)
 
         while len(_APPLY_CACHE) >= _APPLY_CACHE_MAX:
             _APPLY_CACHE.pop(next(iter(_APPLY_CACHE)))
         _APPLY_CACHE[key] = (model, _fwd)  # model ref keeps id() stable
     _fwd = _APPLY_CACHE[key][1]
-
-    def fwd(points, knn_inds=None):
-        outs = _fwd(variables, points, knn_inds)
-        oob = int(outs["oob_overflow"])
-        if oob:
-            raise RuntimeError(
-                f"oob_overflow={oob} during extraction: exact-Morton plan "
-                "capacity exceeded — neighbor contributions dropped. "
-                "Raise cfg.oob_cap_scale (multiplies every level's "
-                "plan capacity; banded_pallas.py:oob_plan) for this data."
-            )
-        return outs
-
-    return fwd
+    return lambda points, knn_inds=None: _fwd(variables, points, knn_inds)
 
 
 def local_result_rows(outs, with_attention):

@@ -29,11 +29,10 @@ def find_point_normals(points, num_neighbours=9, view_point=(0.0, 0.0, 0.0),
     n = len(points)
     k = min(num_neighbours, n - 1)
 
-    # kNN (excluding self) — small N, host sklearn is fine here
-    from sklearn.neighbors import NearestNeighbors
+    # kNN (excluding self) — small N, a host KD-tree is fine here
+    from scipy.spatial import cKDTree
 
-    nbrs = NearestNeighbors(n_neighbors=k + 1).fit(points)
-    _, idx = nbrs.kneighbors(points)
+    _, idx = cKDTree(points).query(points, k=list(range(1, k + 2)))
     neigh = points[idx[:, 1:]]  # [N, k, 3]
 
     mean = neigh.mean(axis=1, keepdims=True)

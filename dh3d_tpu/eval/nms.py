@@ -1,11 +1,11 @@
 """Keypoint non-maximum suppression.
 
 `single_nms` replicates the reference host NMS exactly
-(`core/utils.py:15-43`): 50-NN ball-tree neighborhoods, noise removal (8th
-neighbor farther than 2 m -> zero attention), radius suppression, response
-ratio threshold, top-k by attention.  `device_nms` is the TPU-native
-equivalent built on the Pallas knn op — same rules, one jitted call, no
-sklearn round trip.
+(`core/utils.py:15-43`): 50-NN neighborhoods (a KD-tree here, a ball tree
+there — same exact neighbours), noise removal (8th neighbor farther than
+2 m -> zero attention), radius suppression, response ratio threshold,
+top-k by attention.  `device_nms` is the device equivalent built on the
+knn op — same rules, one jitted call, no host round trip.
 """
 
 from __future__ import annotations
@@ -20,12 +20,12 @@ def single_nms(xyz, attention, nms_radius, min_response_ratio, max_keypoints,
     Returns (num_keypoints, max_indices list) — indices ordered by
     descending attention.
     """
-    from sklearn.neighbors import NearestNeighbors
+    from scipy.spatial import cKDTree
 
     attention = np.array(attention, copy=True)
     k = min(50, len(xyz))
-    nbrs = NearestNeighbors(n_neighbors=k, algorithm="ball_tree").fit(xyz)
-    distances, indices = nbrs.kneighbors(xyz)
+    # a list of ranks keeps the [N, k] shape at k == 1
+    distances, indices = cKDTree(xyz).query(xyz, k=list(range(1, k + 1)))
     if remove_noise:
         invalid = distances[:, min(7, k - 1)] > 2.0
         attention[invalid] = 0.0
@@ -44,7 +44,7 @@ def single_nms(xyz, attention, nms_radius, min_response_ratio, max_keypoints,
 
 
 def device_nms(xyz, attention, nms_radius, min_response_ratio, max_keypoints,
-               remove_noise=True, impl="auto"):
+               remove_noise=True):
     """Same suppression rules as `single_nms`, computed on device.
 
     xyz: [N, 3]; attention: [N].  Returns (num_keypoints,
@@ -57,7 +57,7 @@ def device_nms(xyz, attention, nms_radius, min_response_ratio, max_keypoints,
     xyz = jnp.asarray(xyz)[None]
     att = jnp.asarray(attention).reshape(-1)
     k = min(50, xyz.shape[1])
-    idx, dist = ops.knn_bruteforce(xyz, k, impl=impl)
+    idx, dist = ops.knn_bruteforce(xyz, k)
     idx, dist = idx[0], dist[0]
 
     if remove_noise:
@@ -87,8 +87,8 @@ def nms_keypoint_indices(xyz, attention, nms_radius, min_response_ratio,
                          parity_check=False):
     """Unified NMS entry point for the extraction drivers.
 
-    backend='device' (default) runs the TPU-native knn suppression;
-    'host' runs the sklearn reference-parity path.  `parity_check=True`
+    backend='device' (default) runs the device knn suppression;
+    'host' runs the reference-parity host path.  `parity_check=True`
     runs both and asserts they select the same keypoints (ties in float
     attention aside) — used in tests and for one-off validation runs.
 

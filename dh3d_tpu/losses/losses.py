@@ -34,7 +34,7 @@ def pairwise_dist_matmul(a, b):
     reference actually computes (`core/tf_utils.py:125-136`).  Used for
     DESCRIPTOR distances (D=128, values O(1)): the identity's
     cancellation error is ~1e-6 at highest precision, and the [M,D]x[D,N]
-    matmul rides the MXU instead of a [B,M,N,D] broadcast."""
+    matmul replaces a [B,M,N,D] broadcast."""
     ab = jnp.einsum("bmd,bnd->bmn", a, b, precision="highest",
                     preferred_element_type=jnp.float32)
     a2 = jnp.sum(a * a, axis=-1)[:, :, None]
@@ -245,7 +245,7 @@ def _global_neg_pool(neg, axis_name=None):
     """Flatten all negative clouds in the batch into one pool [B*Nn, D].
 
     With `axis_name` bound (shard_map trainer), the pool is all-gathered
-    across the mesh axis over ICI so every device mines against the full
+    across the mesh axis so every device mines against the full
     global-batch pool.  Under the global-view jit trainer the input already
     IS the global batch (XLA inserts the collectives), so axis_name stays
     None.
@@ -354,10 +354,6 @@ def compute_total_loss(outs, cfg, params_l2=0.0):
             global_triplet_margin=_default(cfg.global_triplet_margin, 0.5),
             global_quadruplet_margin=_default(
                 cfg.global_quadruplet_margin, 0.2),
-            # only bound inside a shard_map trainer (same named axis as
-            # sync-BN); the global-view jit trainer already sees the
-            # mesh-wide batch, so no explicit collective is needed there
-            axis_name=cfg.bn_axis_name,
         )
         gl = gl * _default(cfg.global_loss_weight, 1.0)
         metrics["globaldesc_loss"] = gl

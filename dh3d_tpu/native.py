@@ -2,31 +2,51 @@
 
 `native/dh3d_native.cpp` provides C++ versions of the host hot loop
 (FPS + 1-NN pair generation, `core/datasets.py:143-150`) and the open3d
-preprocessing (`core/utils.py:165-177`).  Every function transparently
-falls back to the numpy implementation when the shared library has not
-been built (`make -C native`).
+preprocessing (`core/utils.py:165-177`).  The first call builds the
+shared library from source (`make -C native`, also the one command to
+build it ahead of time); every function falls back to the numpy
+implementation where it cannot be built.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
+import subprocess
+import threading
 
 import numpy as np
 
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
 _LIB = None
 _TRIED = False
+_LOCK = threading.Lock()
+
+
+def _build():
+    """`make -C native` (a no-op when the library is up to date)."""
+    if shutil.which("make") is None:
+        return
+    try:
+        subprocess.run(["make", "-s", "-C", _NATIVE_DIR], check=True,
+                       capture_output=True, timeout=300)
+    except (OSError, subprocess.SubprocessError):
+        pass  # no compiler: the numpy fallbacks serve
 
 
 def _load():
     global _LIB, _TRIED
-    if _TRIED:
+    with _LOCK:
+        if not _TRIED:
+            _TRIED = True
+            _build()
+            _LIB = _open(os.path.join(_NATIVE_DIR, "libdh3d_native.so"))
         return _LIB
-    _TRIED = True
-    path = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "native", "libdh3d_native.so",
-    )
+
+
+def _open(path):
     if not os.path.exists(path):
         return None
     lib = ctypes.CDLL(path)
@@ -44,8 +64,7 @@ def _load():
     lib.dh3d_radius_outlier.argtypes = [f32p, ctypes.c_int, ctypes.c_int,
                                         ctypes.c_float, i32p]
     lib.dh3d_radius_outlier.restype = ctypes.c_int
-    _LIB = lib
-    return _LIB
+    return lib
 
 
 def available() -> bool:

@@ -1,485 +1,332 @@
-"""Network blocks/backbones, mirroring `core/backbones.py` in flax.
+"""Network blocks/backbones, mirroring `core/backbones.py`.
 
-Every module takes channel-last tensors; `train` toggles BN batch-stats
-mode.  The wiring of each block cites the reference lines it reproduces.
+Every block takes channel-last tensors and comes as a `<block>_spec` /
+`<block>` pair (see nn/layers.py); `train` toggles BN batch-stats mode.
+The wiring of each block cites the reference lines it reproduces.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+from jax.nn import initializers as init
 
 from dh3d_tpu import ops
 from dh3d_tpu.nn.layers import (
-    BatchNorm,
-    Conv1x1,
-    ConvPointsetBN,
-    FlexConvBN,
-    SEResBottleneck,
+    batch_norm,
+    batch_norm_spec,
+    conv1x1,
+    conv1x1_spec,
+    conv_pointset_bn,
+    conv_pointset_bn_spec,
+    dense,
+    dense_spec,
+    flexconv_bn,
+    flexconv_bn_spec,
     l2_normalize,
+    param,
+    se_res_bottleneck,
+    se_res_bottleneck_spec,
 )
 
 
-class FlexConvDilate(nn.Module):
+def flex_conv_dilate_spec(din, outdims, concat=True, add_se="max_pool"):
+    spec = {}
+    for i, d in enumerate(outdims):
+        spec[f"flexconv_{i}"] = flexconv_bn_spec(din if i == 0 else
+                                                 outdims[i - 1], d)
+    if add_se:
+        spec["se"] = se_res_bottleneck_spec(outdims[-1])
+    if concat:
+        spec["concat_conv1d"] = conv1x1_spec(outdims[-1] + din, outdims[-1])
+    return spec
+
+
+def flex_conv_dilate(p, s, xyz, feat, train, *, dilate, knn, outdims,
+                     concat=True, add_se="max_pool", upsample=True,
+                     dtype=None, sorted_order=False, knn_indices=None,
+                     level_cache=None):
     """flex_conv_dilate (`core/backbones.py:58-101`):
     [FPS subsample by `dilate`] -> knn -> stacked FlexConv+BN -> SE ->
     [3-NN inverse-distance upsample] -> [concat + 1x1].
-    """
 
-    dilate: int
-    knn: int
-    outdims: Sequence[int]
-    concat: bool = True
-    add_se: str = "max_pool"  # 'max_pool' | 'avg_pool' | ''
-    upsample: bool = True
-    use_running_average: bool = True
-    bn_axis_name: Optional[str] = None
-    dtype: Optional[object] = None
-    method: str = "gather"
-    inband_knn: bool = False  # caller-provided knn is Morton-banded
-    exact_plan: bool = False  # exact kNN + slot-compacted oob correction
-    oob_cap_scale: float = 1.0  # oob-plan capacity multiplier (cfg knob)
-    fast_grads: bool = False
-    return_cache: bool = False  # also return this level's geometry cache
+    `sorted_order` keeps the subsampled set in the parent's (Morton)
+    order: the FPS *selection* is unchanged, only its order, which is
+    internal to this stage (features are upsampled back to full
+    resolution before leaving).
 
-    @nn.compact
-    def __call__(self, xyz, feat, knn_indices=None, knn_plan=None,
-                 level_cache=None):
-        """level_cache: geometry computed by ANOTHER FlexConvDilate on the
-        SAME xyz with the same dilate/method/exact_plan (and same knn
-        count for the knn entries) — FPS selection, subsampled kNN
-        (+plan), and 3-NN interpolation are functions of xyz alone, so
-        stages that share a resolution level share them verbatim (stage2
-        and the global stage both subsample the full cloud by 8).  Keys
-        (arrays/plans only, so the cache passes through nn.remat):
-        kp_idx, knn_indices, knn_plan, interp=(dist, idx, interp_plan).
-        Static values (in-band flags, window widths) are re-derived
-        locally — valid because producer and consumer run the same
-        method/exact_plan routing at the same npoint.
-        With return_cache=True the call returns (xyz, new_feat, cache)."""
-        num_point = xyz.shape[1]
-        npoint = num_point // self.dilate
-        banded = self.method == "banded"
-        # the banded fast path needs tile-divisible sizes; the windows
-        # here must match ops.knn_bruteforce(window=...) exactly
-        use_banded = (banded and num_point % 256 == 0
-                      and npoint % 256 == 0 and npoint >= 512)
-        # full-table window: the whole key table rides in one VMEM window
-        # (<=2048 rows: <=1 MB bf16 at C=256), so EVERY index is
-        # structurally in-band — banded ops are exact with no plan and no
-        # correction.  At the model's subsampled levels (N/8 = 1024-2048)
-        # this replaces the slot-compacted correction entirely; measured
-        # on the 100-cloud demo set, the old windowed interp plan
-        # (window=256, cap=N*K/8) actually OVERFLOWED on some clouds
-        # (per-tile oob saturating 768 of we=640), which full-table
-        # delivery makes impossible by construction.
-        full_table = use_banded and npoint <= 2048
-        win = npoint if full_table else 512
-        inband = self.inband_knn
-        lc = dict(level_cache) if level_cache else {}
-        cache = {}
+    level_cache: geometry computed by ANOTHER call on the SAME xyz with
+    the same dilate (and same knn count for the knn entry) — FPS
+    selection, subsampled kNN and 3-NN interpolation are functions of xyz
+    alone, so stages that share a resolution level share them verbatim
+    (stage2 and the global stage both subsample the full cloud by 8).
+    Keys: kp_idx, knn_indices, interp=(dist, idx).
 
-        if self.dilate > 1:
-            # under the banded method, keep the subsampled set in the
-            # parent's (Morton) order: ascending original indices preserve
-            # the space-filling-curve locality the kernel windows rely on.
-            # FPS *selection* is unchanged — only the output order differs,
-            # which is internal to this stage (features are upsampled back
-            # to full resolution before leaving).
-            points_s, feat_s, kp_idx = ops.subsample(
-                xyz, feat, npoint, kp_idx=lc.get("kp_idx"),
-                sorted_order=banded)
-            cache["kp_idx"] = kp_idx
-        else:
-            points_s, feat_s = xyz, feat
+    Returns (xyz, new_feat, cache, new_s)."""
+    num_point = xyz.shape[1]
+    npoint = num_point // dilate
+    lc = dict(level_cache) if level_cache else {}
+    cache = {}
+    new_s = dict(s)
 
-        if knn_indices is None and lc.get("knn_indices") is not None:
-            knn_indices = lc["knn_indices"]
-            knn_plan = lc.get("knn_plan")
-            inband = use_banded and (full_table or not self.exact_plan)
-        if knn_indices is None:
-            if use_banded and self.exact_plan:
-                # exact kNN (no window restriction); full-table levels
-                # are exact with no plan, wider levels add one shared
-                # out-of-band plan for every banded op on this level —
-                # exact neighbor routing, the shipping Morton default.
-                # The plan itself is TPU-only (the banded kernels fall
-                # back to exact XLA gathers elsewhere, making it dead
-                # weight on other backends).
-                knn_indices, _ = ops.knn_bruteforce(points_s, self.knn,
-                                                    mode="fast")
-                inband = full_table
-                if not full_table and jax.default_backend() == "tpu":
-                    from dh3d_tpu.ops.pallas.banded_pallas import oob_plan
+    if dilate > 1:
+        points_s, feat_s, kp_idx = ops.subsample(
+            xyz, feat, npoint, kp_idx=lc.get("kp_idx"),
+            sorted_order=sorted_order)
+        cache["kp_idx"] = kp_idx
+    else:
+        points_s, feat_s = xyz, feat
 
-                    knn_plan = oob_plan(knn_indices, npoint, 256, 512,
-                                        scale=self.oob_cap_scale)
-                    # exactness invariant: plan drops (capacity/window
-                    # overflow) silently omit neighbor contributions —
-                    # surfaced to the trainer/eval drivers, which fail on
-                    # nonzero (train/trainer.py check_oob_overflow)
-                    self.sow("diagnostics", "oob_overflow",
-                             knn_plan.overflow)
-            else:
-                knn_indices, _ = ops.knn_bruteforce(
-                    points_s, self.knn, mode="fast",
-                    window=win if use_banded else None)
-                inband = use_banded
-                knn_plan = None
-            cache["knn_indices"] = knn_indices
-            cache["knn_plan"] = knn_plan
+    if knn_indices is None:
+        knn_indices = lc.get("knn_indices")
+    if knn_indices is None:
+        knn_indices, _ = ops.knn_bruteforce(points_s, knn)
+    cache["knn_indices"] = knn_indices
 
-        x = feat_s
-        for i, d in enumerate(self.outdims):
-            x = FlexConvBN(
-                d, self.use_running_average, self.bn_axis_name,
-                dtype=self.dtype, method=self.method,
-                assume_inband=inband, fast_grads=self.fast_grads,
-                window=win, name=f"flexconv_{i}",
-            )(x, points_s, knn_indices, plan=knn_plan)
+    x = feat_s
+    for i in range(len(outdims)):
+        name = f"flexconv_{i}"
+        x, new_s[name] = flexconv_bn(p[name], s[name], x, points_s,
+                                     knn_indices, train, dtype)
 
-        if self.add_se == "max_pool":
-            x_pool, _ = ops.flex_pool(x, knn_indices, method=self.method,
-                                      window=win, assume_inband=inband,
-                                      plan=knn_plan)
-            x = SEResBottleneck(
-                self.outdims[-1], self.use_running_average,
-                self.bn_axis_name, name="se",
-            )(x, x_pool)
-        elif self.add_se == "avg_pool":
-            # flex_avg neighborhood sum scaled by 1/knn
-            # (`core/backbones.py:81-83`)
-            x_pool = ops.flex_avg(x, knn_indices, method=self.method,
-                                  window=win, assume_inband=inband,
-                                  plan=knn_plan) * (1.0 / self.knn)
-            x = SEResBottleneck(
-                self.outdims[-1], self.use_running_average,
-                self.bn_axis_name, name="se",
-            )(x, x_pool)
+    if add_se == "max_pool":
+        x_pool, _ = ops.flex_pool(x, knn_indices)
+        x = se_res_bottleneck(p["se"], x, x_pool)
+    elif add_se == "avg_pool":
+        # flex_avg neighborhood sum scaled by 1/knn
+        # (`core/backbones.py:81-83`)
+        x_pool = ops.flex_avg(x, knn_indices) * (1.0 / knn)
+        x = se_res_bottleneck(p["se"], x, x_pool)
 
-        new_feat = x
-        if self.upsample and self.dilate > 1:
-            # upsample window: full table when the key level fits (exact,
-            # no plan); otherwise 512 for the planned exact path (the
-            # 256 window's oob population overflows any practical plan
-            # capacity on real clouds) and 256 for the approximate one
-            iwin = npoint if full_table else (
-                512 if self.exact_plan else 256)
-            inband_interp = use_banded and (full_table
-                                            or not self.exact_plan)
-            interp = lc.get("interp")
-            if interp is None:
-                if use_banded and self.exact_plan and not full_table:
-                    dist, idx = ops.three_nn(xyz, points_s)
-                    interp_plan = None
-                    if jax.default_backend() == "tpu":
-                        from dh3d_tpu.ops.pallas.banded_pallas import (
-                            oob_plan,
-                        )
+    new_feat = x
+    if upsample and dilate > 1:
+        interp = lc.get("interp")
+        if interp is None:
+            interp = ops.three_nn(xyz, points_s)
+            cache["interp"] = interp
+        dist, idx = interp
+        weight = ops.inverse_distance_weights(dist)
+        new_feat = ops.three_interpolate(new_feat, idx, weight)
 
-                        interp_plan = oob_plan(
-                            idx, npoint, 256, iwin,
-                            scale=self.oob_cap_scale)
-                        # same invariant as the stage knn plan above
-                        self.sow("diagnostics", "oob_overflow",
-                                 interp_plan.overflow)
-                else:
-                    # full-table exact_plan levels: three_nn with the
-                    # whole table as the window IS exact 3-NN
-                    dist, idx = ops.three_nn(
-                        xyz, points_s,
-                        window=iwin if use_banded else None)
-                    interp_plan = None
-                interp = (dist, idx, interp_plan)
-                cache["interp"] = interp
-            dist, idx, interp_plan = interp
-            weight = ops.inverse_distance_weights(dist)
-            new_feat = ops.three_interpolate(
-                new_feat, idx, weight, method=self.method,
-                window=iwin, assume_inband=inband_interp,
-                plan=interp_plan)
-
-        if self.concat:
-            new_feat = jnp.concatenate([new_feat, feat], axis=-1)
-            new_feat = Conv1x1(
-                self.outdims[-1],
-                use_running_average=self.use_running_average,
-                bn_axis_name=self.bn_axis_name, dtype=self.dtype,
-                name="concat_conv1d",
-            )(new_feat)
-        if self.return_cache:
-            return xyz, new_feat, cache
-        return xyz, new_feat
+    if concat:
+        new_feat = jnp.concatenate([new_feat, feat], axis=-1)
+        new_feat, new_s["concat_conv1d"] = conv1x1(
+            p["concat_conv1d"], s["concat_conv1d"], new_feat, train,
+            dtype=dtype)
+    return xyz, new_feat, cache, new_s
 
 
-class BackboneLocalDilate(nn.Module):
-    """backbone_local_dilate (`core/backbones.py:104-127`)."""
-
-    featdim: int = 128
-    dilate2: int = 8
-    use_running_average: bool = True
-    bn_axis_name: Optional[str] = None
-    dtype: Optional[object] = None
-    method: str = "gather"
-    inband_knn: bool = False  # knn_ind came from the Morton-banded knn
-    exact_plan: bool = False  # exact kNN + slot-compacted oob correction
-    oob_cap_scale: float = 1.0  # oob-plan capacity multiplier (cfg knob)
-    fast_grads: bool = False
-    return_cache: bool = False  # also return stage2's level-geometry cache
-
-    @nn.compact
-    def __call__(self, points, knn_ind, knn_plan=None):
-        ura, axn = self.use_running_average, self.bn_axis_name
-        dt = self.dtype
-        nn_8 = knn_ind[..., :8]
-
-        # initconv: conv_pointset on raw xyz + BN/relu, then flex max-pool
-        # (`core/backbones.py:108-110`).  The banded one-hot matmul wins
-        # even at Din=3 (cost is C-independent below one lane tile):
-        # measured 11.1 ms gather vs ~3 ms banded at [20, 8192]
-        init_f = ConvPointsetBN(32, ura, axn, method=self.method,
-                                assume_inband=self.inband_knn,
-                                name="initconv")(points, nn_8,
-                                                 plan=knn_plan)
-        init_f, _ = ops.flex_pool(init_f, nn_8, method=self.method,
-                                  assume_inband=self.inband_knn,
-                                  plan=knn_plan)
-
-        # stage 1: full resolution, knn8, dims [64, 64], SE max-pool
-        _, x1 = FlexConvDilate(
-            dilate=1, knn=8, outdims=(64, 64), concat=False,
-            add_se="max_pool", use_running_average=ura, bn_axis_name=axn,
-            dtype=dt, method=self.method, inband_knn=self.inband_knn,
-            exact_plan=self.exact_plan, fast_grads=self.fast_grads,
-            oob_cap_scale=self.oob_cap_scale,
-            name="stage1",
-        )(points, init_f, knn_indices=nn_8, knn_plan=knn_plan)
-
-        # stage 2: dilate 8, dims [128, 128], concat + 1x1
-        x2 = Conv1x1(64, use_running_average=ura, bn_axis_name=axn,
-                     dtype=dt, name="before_stage2_conv1d")(x1)
-        stage2 = FlexConvDilate(
-            dilate=self.dilate2, knn=8, outdims=(128, 128), concat=True,
-            add_se="max_pool", use_running_average=ura, bn_axis_name=axn,
-            dtype=dt, method=self.method, exact_plan=self.exact_plan,
-            oob_cap_scale=self.oob_cap_scale,
-            fast_grads=self.fast_grads, return_cache=self.return_cache,
-            name="stage2",
-        )(points, x2)
-        cache = None
-        if self.return_cache:
-            _, x2, cache = stage2
-        else:
-            _, x2 = stage2
-
-        # combine with stage-1 shortcut (`core/backbones.py:123`)
-        feat = Conv1x1(128, use_running_average=ura, bn_axis_name=axn,
-                       dtype=dt, name="local_stage1_shortcut")(x1) + x2
-
-        if self.featdim < 128:
-            feat = Conv1x1(self.featdim, use_running_average=ura,
-                           bn_axis_name=axn, name="final_fc")(feat)
-        if self.return_cache:
-            return points, feat, cache
-        return points, feat
+def backbone_local_dilate_spec(featdim=128):
+    spec = {
+        "initconv": conv_pointset_bn_spec(3, 32),
+        "stage1": flex_conv_dilate_spec(32, (64, 64), concat=False),
+        "before_stage2_conv1d": conv1x1_spec(64, 64),
+        "stage2": flex_conv_dilate_spec(64, (128, 128), concat=True),
+        "local_stage1_shortcut": conv1x1_spec(64, 128),
+    }
+    if featdim < 128:
+        spec["final_fc"] = conv1x1_spec(128, featdim)
+    return spec
 
 
-class DetectionBlock(nn.Module):
+def backbone_local_dilate(p, s, points, knn_ind, train, *, dilate2=8,
+                          dtype=None, sorted_order=False):
+    """backbone_local_dilate (`core/backbones.py:104-127`).
+
+    Returns (points, feat, stage2 level cache, new_s)."""
+    new_s = dict(s)
+    nn_8 = knn_ind[..., :8]
+
+    # initconv: conv_pointset on raw xyz + BN/relu, then flex max-pool
+    # (`core/backbones.py:108-110`)
+    init_f, new_s["initconv"] = conv_pointset_bn(
+        p["initconv"], s["initconv"], points, nn_8, train)
+    init_f, _ = ops.flex_pool(init_f, nn_8)
+
+    # stage 1: full resolution, knn8, dims [64, 64], SE max-pool
+    _, x1, _, new_s["stage1"] = flex_conv_dilate(
+        p["stage1"], s["stage1"], points, init_f, train, dilate=1, knn=8,
+        outdims=(64, 64), concat=False, dtype=dtype, knn_indices=nn_8)
+
+    # stage 2: dilate 8, dims [128, 128], concat + 1x1
+    x2, new_s["before_stage2_conv1d"] = conv1x1(
+        p["before_stage2_conv1d"], s["before_stage2_conv1d"], x1, train,
+        dtype=dtype)
+    _, x2, cache, new_s["stage2"] = flex_conv_dilate(
+        p["stage2"], s["stage2"], points, x2, train, dilate=dilate2, knn=8,
+        outdims=(128, 128), concat=True, dtype=dtype,
+        sorted_order=sorted_order)
+
+    # combine with stage-1 shortcut (`core/backbones.py:123`)
+    shortcut, new_s["local_stage1_shortcut"] = conv1x1(
+        p["local_stage1_shortcut"], s["local_stage1_shortcut"], x1, train,
+        dtype=dtype)
+    feat = shortcut + x2
+
+    if "final_fc" in p:
+        feat, new_s["final_fc"] = conv1x1(p["final_fc"], s["final_fc"],
+                                          feat, train)
+    return points, feat, cache, new_s
+
+
+def detection_block_spec(din, conv_dims=(128, 256, 1024)):
     """detection_block (`core/backbones.py:132-151`): 1x1 conv stack ->
-    1-logit head (bias init 1/8) -> sigmoid (or softplus) keypoint score."""
-
-    conv_dims: Sequence[int] = (128, 256, 1024)
-    use_softplus: bool = False
-    use_running_average: bool = True
-    bn_axis_name: Optional[str] = None
-    dtype: Optional[object] = None
-
-    @nn.compact
-    def __call__(self, features):
-        x = features
-        for i, d in enumerate(self.conv_dims):
-            x = Conv1x1(d, use_running_average=self.use_running_average,
-                        bn_axis_name=self.bn_axis_name, dtype=self.dtype,
-                        name=f"detec_conv{i}")(x)
-        logits = nn.Dense(
-            1, kernel_init=nn.initializers.he_normal(),
-            bias_init=nn.initializers.constant(1.0 / 8),
-            name="detec_conv_fc",
-        )(x)
-        return nn.softplus(logits) if self.use_softplus else nn.sigmoid(logits)
+    1-logit head (bias init 1/8)."""
+    spec = {}
+    for i, d in enumerate(conv_dims):
+        spec[f"detec_conv{i}"] = conv1x1_spec(din, d)
+        din = d
+    spec["detec_conv_fc"] = dense_spec(din, 1,
+                                       bias_init=init.constant(1.0 / 8))
+    return spec
 
 
-class GlobalAttBlock(nn.Module):
-    """globalatt_block (`core/backbones.py:156-173`)."""
-
-    use_running_average: bool = True
-    bn_axis_name: Optional[str] = None
-    dtype: Optional[object] = None
-
-    @nn.compact
-    def __call__(self, features):
-        featdim = features.shape[-1]
-        conv_dims = (256, 1024) if featdim > 256 else (1024,)
-        x = features
-        for i, d in enumerate(conv_dims):
-            x = Conv1x1(d, use_running_average=self.use_running_average,
-                        bn_axis_name=self.bn_axis_name, dtype=self.dtype,
-                        name=f"detec_conv{i}")(x)
-        logits = nn.Dense(1, kernel_init=nn.initializers.he_normal(),
-                          name="detec_conv_fc")(x)
-        return nn.sigmoid(logits)
+def detection_block(p, s, features, train, use_softplus=False, dtype=None):
+    """Keypoint score: sigmoid (or softplus) of the 1-logit head."""
+    x, new_s = features, dict(s)
+    i = 0
+    while f"detec_conv{i}" in p:
+        name = f"detec_conv{i}"
+        x, new_s[name] = conv1x1(p[name], s[name], x, train, dtype=dtype)
+        i += 1
+    logits = dense(p["detec_conv_fc"], x)
+    act = jax.nn.softplus if use_softplus else jax.nn.sigmoid
+    return act(logits), new_s
 
 
-class GlobalBeforeAssemble(nn.Module):
+def global_att_block_spec(featdim):
+    """globalatt_block (`core/backbones.py:156-173`): a detection block
+    with a width-dependent conv stack and a zero-initialized head bias;
+    applied by `detection_block` (sigmoid)."""
+    spec = detection_block_spec(
+        featdim, (256, 1024) if featdim > 256 else (1024,))
+    spec["detec_conv_fc"]["bias"] = param((1,), init.zeros)
+    return spec
+
+
+def global_before_assemble_spec(din, gl_dims=(256,), concat_xyz=False):
     """global_before_assemble (`core/backbones.py:178-186`): one dilated
     flexconv stage (no SE) + upsample."""
-
-    gl_dilate: int = 8
-    knn_num: int = 8
-    gl_dims: Sequence[int] = (256,)
-    concat_xyz: bool = False
-    use_running_average: bool = True
-    bn_axis_name: Optional[str] = None
-    dtype: Optional[object] = None
-    method: str = "gather"
-    exact_plan: bool = False
-    oob_cap_scale: float = 1.0
-    fast_grads: bool = False
-
-    @nn.compact
-    def __call__(self, points, localdesc, level_cache=None):
-        if self.concat_xyz:
-            localdesc = jnp.concatenate([points, localdesc], axis=-1)
-        return FlexConvDilate(
-            dilate=self.gl_dilate, knn=self.knn_num, outdims=self.gl_dims,
-            concat=False, add_se="", upsample=True,
-            use_running_average=self.use_running_average,
-            bn_axis_name=self.bn_axis_name, dtype=self.dtype,
-            method=self.method, exact_plan=self.exact_plan,
-            oob_cap_scale=self.oob_cap_scale,
-            fast_grads=self.fast_grads,
-            name="global_before_assemble",
-        )(points, localdesc, level_cache=level_cache)
+    return {"global_before_assemble": flex_conv_dilate_spec(
+        din + 3 * bool(concat_xyz), tuple(gl_dims), concat=False, add_se="")}
 
 
-class GlobalBeforeAssembleConv1d(nn.Module):
+def global_before_assemble(p, s, points, localdesc, train, *, gl_dilate=8,
+                           knn_num=8, gl_dims=(256,), concat_xyz=False,
+                           dtype=None, sorted_order=False, level_cache=None):
+    if concat_xyz:
+        localdesc = jnp.concatenate([points, localdesc], axis=-1)
+    name = "global_before_assemble"
+    points, x, _, sub = flex_conv_dilate(
+        p[name], s[name], points, localdesc, train, dilate=gl_dilate,
+        knn=knn_num, outdims=tuple(gl_dims), concat=False, add_se="",
+        dtype=dtype, sorted_order=sorted_order, level_cache=level_cache)
+    return points, x, {name: sub}
+
+
+def global_before_assemble_conv1d_spec(din, gl_dims=(256,),
+                                       concat_xyz=False):
     """global_before_assemble_conv1d (`core/backbones.py:189-196`)."""
-
-    gl_dims: Sequence[int] = (256,)
-    concat_xyz: bool = False
-    use_running_average: bool = True
-    bn_axis_name: Optional[str] = None
-
-    @nn.compact
-    def __call__(self, points, localdesc):
-        if self.concat_xyz:
-            localdesc = jnp.concatenate([points, localdesc], axis=-1)
-        x = localdesc
-        for i, d in enumerate(self.gl_dims):
-            x = Conv1x1(d, use_running_average=self.use_running_average,
-                        bn_axis_name=self.bn_axis_name,
-                        name=f"global_before_assemble_conv1{i}")(x)
-        return points, x
+    din += 3 * bool(concat_xyz)
+    spec = {}
+    for i, d in enumerate(gl_dims):
+        spec[f"global_before_assemble_conv1{i}"] = conv1x1_spec(din, d)
+        din = d
+    return spec
 
 
-class ContextGating(nn.Module):
+def global_before_assemble_conv1d(p, s, points, localdesc, train,
+                                  gl_dims=(256,), concat_xyz=False):
+    if concat_xyz:
+        localdesc = jnp.concatenate([points, localdesc], axis=-1)
+    x, new_s = localdesc, dict(s)
+    for i in range(len(gl_dims)):
+        name = f"global_before_assemble_conv1{i}"
+        x, new_s[name] = conv1x1(p[name], s[name], x, train)
+    return points, x, new_s
+
+
+def context_gating_spec(dim, add_batch_norm=True):
     """context_gating (`core/backbones.py:282-320`)."""
-
-    add_batch_norm: bool = True
-    use_running_average: bool = True
-    bn_axis_name: Optional[str] = None
-
-    @nn.compact
-    def __call__(self, x):
-        dim = x.shape[-1]
-        w = self.param(
-            "gating_weights",
-            nn.initializers.normal(stddev=1.0 / math.sqrt(dim)),
-            (dim, dim),
-        )
-        gates = x @ w
-        if self.add_batch_norm:
-            # slim.batch_norm default decay 0.999 (`core/backbones.py:303-309`)
-            gates = BatchNorm(self.use_running_average, momentum=0.999,
-                              axis_name=self.bn_axis_name,
-                              name="gating_bn")(gates)
-        else:
-            gates = gates + self.param(
-                "gating_biases",
-                nn.initializers.normal(stddev=1.0 / math.sqrt(dim)), (dim,)
-            )
-        return x * nn.sigmoid(gates)
+    normal = init.normal(stddev=1.0 / math.sqrt(dim))
+    spec = {"gating_weights": param((dim, dim), normal)}
+    if add_batch_norm:
+        spec["gating_bn"] = batch_norm_spec(dim)
+    else:
+        spec["gating_biases"] = param((dim,), normal)
+    return spec
 
 
-class NetVLAD(nn.Module):
-    """global_netvald_block (`core/backbones.py:202-279`): PCAN-style
-    attention-reweighted NetVLAD aggregation + FC + BN + context gating."""
+def context_gating(p, s, x, train):
+    gates = x @ p["gating_weights"]
+    new_s = dict(s)
+    if "gating_bn" in p:
+        # slim.batch_norm default decay 0.999 (`core/backbones.py:303-309`)
+        gates, new_s["gating_bn"] = batch_norm(
+            p["gating_bn"], s["gating_bn"], gates, train, momentum=0.999)
+    else:
+        gates = gates + p["gating_biases"]
+    return x * jax.nn.sigmoid(gates), new_s
 
-    cluster_size: int = 64
-    output_dim: int = 256
-    add_batch_norm: bool = True
-    gating: bool = True
-    use_running_average: bool = True
-    bn_axis_name: Optional[str] = None
 
-    @nn.compact
-    def __call__(self, features, att):
-        B, N, D = features.shape
-        K = self.cluster_size
-        x = l2_normalize(features, axis=-1)  # per-point l2 (`:209`)
+def netvlad_spec(D, cluster_size=64, output_dim=256, add_batch_norm=True,
+                 gating=True):
+    """global_netvald_block (`core/backbones.py:202-279`)."""
+    K = cluster_size
+    normal_d = init.normal(stddev=1.0 / math.sqrt(D))
+    spec = {"cluster_weights": param((D, K), normal_d)}
+    if add_batch_norm:
+        spec["cluster_bn"] = batch_norm_spec(K)
+    else:
+        spec["cluster_biases"] = param((K,), normal_d)
+    spec["cluster_weights2"] = param((1, D, K), normal_d)
+    spec["hidden1_weights"] = param(
+        (D * K, output_dim), init.normal(stddev=1.0 / math.sqrt(K)))
+    spec["hidden_bn"] = batch_norm_spec(output_dim)
+    if gating:
+        spec["gating"] = context_gating_spec(output_dim, add_batch_norm)
+    return spec
 
-        cluster_w = self.param(
-            "cluster_weights",
-            nn.initializers.normal(stddev=1.0 / math.sqrt(D)), (D, K),
-        )
-        act = jnp.einsum("bnd,dk->bnk", x, cluster_w,
-                         precision="highest",
-                         preferred_element_type=jnp.float32)
-        if self.add_batch_norm:
-            # slim.batch_norm default decay 0.999 (`core/backbones.py:218-223`)
-            act = BatchNorm(self.use_running_average, momentum=0.999,
-                            axis_name=self.bn_axis_name,
-                            name="cluster_bn")(act)
-        else:
-            act = act + self.param(
-                "cluster_biases",
-                nn.initializers.normal(stddev=1.0 / math.sqrt(D)), (K,)
-            )
-        act = nn.softmax(act, axis=-1)
-        act = act * att  # attention reweighting (`:232-236`), att [B,N,1]
 
-        a_sum = jnp.sum(act, axis=1, keepdims=True)  # [B,1,K]
-        cluster_w2 = self.param(
-            "cluster_weights2",
-            nn.initializers.normal(stddev=1.0 / math.sqrt(D)), (1, D, K),
-        )
-        a = a_sum * cluster_w2  # [B,D,K]
+def netvlad(p, s, features, att, train):
+    """PCAN-style attention-reweighted NetVLAD aggregation + FC + BN +
+    context gating."""
+    B, N, D = features.shape
+    K = p["cluster_weights"].shape[-1]
+    new_s = dict(s)
+    x = l2_normalize(features, axis=-1)  # per-point l2 (`:209`)
 
-        vlad = jnp.einsum("bnk,bnd->bdk", act, x,
-                          precision="highest",
-                          preferred_element_type=jnp.float32)  # [B,D,K]
-        vlad = vlad - a
-        vlad = l2_normalize(vlad, axis=1)  # intra-normalize over D (`:258`)
-        vlad = vlad.reshape(B, D * K)
-        vlad = l2_normalize(vlad, axis=-1)
+    act = jnp.einsum("bnd,dk->bnk", x, p["cluster_weights"],
+                     precision="highest",
+                     preferred_element_type=jnp.float32)
+    if "cluster_bn" in p:
+        # slim.batch_norm default decay 0.999 (`core/backbones.py:218-223`)
+        act, new_s["cluster_bn"] = batch_norm(
+            p["cluster_bn"], s["cluster_bn"], act, train, momentum=0.999)
+    else:
+        act = act + p["cluster_biases"]
+    act = jax.nn.softmax(act, axis=-1)
+    act = act * att  # attention reweighting (`:232-236`), att [B,N,1]
 
-        hidden1 = self.param(
-            "hidden1_weights",
-            nn.initializers.normal(stddev=1.0 / math.sqrt(K)),
-            (D * K, self.output_dim),
-        )
-        vlad = vlad @ hidden1
-        # tf.contrib.layers.batch_norm default decay 0.999
-        # (`core/backbones.py:275-279`)
-        vlad = BatchNorm(self.use_running_average, momentum=0.999,
-                         axis_name=self.bn_axis_name, name="hidden_bn")(vlad)
-        if self.gating:
-            vlad = ContextGating(
-                self.add_batch_norm, self.use_running_average,
-                self.bn_axis_name, name="gating",
-            )(vlad)
-        return vlad
+    a_sum = jnp.sum(act, axis=1, keepdims=True)  # [B,1,K]
+    a = a_sum * p["cluster_weights2"]  # [B,D,K]
+
+    vlad = jnp.einsum("bnk,bnd->bdk", act, x,
+                      precision="highest",
+                      preferred_element_type=jnp.float32)  # [B,D,K]
+    vlad = vlad - a
+    vlad = l2_normalize(vlad, axis=1)  # intra-normalize over D (`:258`)
+    vlad = vlad.reshape(B, D * K)
+    vlad = l2_normalize(vlad, axis=-1)
+
+    vlad = vlad @ p["hidden1_weights"]
+    # tf.contrib.layers.batch_norm default decay 0.999
+    # (`core/backbones.py:275-279`)
+    vlad, new_s["hidden_bn"] = batch_norm(p["hidden_bn"], s["hidden_bn"],
+                                          vlad, train, momentum=0.999)
+    if "gating" in p:
+        vlad, new_s["gating"] = context_gating(p["gating"], s["gating"],
+                                               vlad, train)
+    return vlad, new_s

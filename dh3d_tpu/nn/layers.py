@@ -1,28 +1,75 @@
-"""Flax layer wrappers over the TPU op layer.
+"""Layers as plain JAX functions over nested parameter dicts.
 
 Mirrors the reference layer surface (`core/layers.py`, `core/tf_utils.py`):
 FlexConv/ConvPointset with their BatchNorm-sandwich helpers
 (`core/tf_utils.py:48-83`), the 1x1 feature conv (`core/tf_utils.py:99-109`),
-and the SE bottlenecks (`core/backbones.py:33-55`).
+and the SE bottleneck (`core/backbones.py:45-55`).
 
-Parameter shapes/initializers follow `core/layers.py:252-288`:
+Every layer comes as a pair:
+  - `<layer>_spec(...)` describes its variables: a nested dict whose leaves
+    are `Var(collection, shape, init)`; `init_from_spec` turns it into the
+    `{"params": ..., "batch_stats": ...}` trees from a key and the shapes
+    alone, with no forward trace;
+  - `<layer>(p, s, ...)` applies it to its params `p` and batch stats `s`
+    and returns `(y, new_s)`; `train=False` returns `s` unchanged.
+
+Variable paths and shapes are the ones the committed checkpoints use
+(`models/demo_stage*.npz`).  Parameter shapes/initializers follow
+`core/layers.py:252-288`:
   theta (position_theta) [Dp, Din, Dout]  glorot_uniform (Keras default)
   position_bias          [Din, Dout]      zeros
   feature_bias           [Dout]           zeros
 BatchNorm is over the channel axis (reference: NCHW BN over dim 1 ==
-channel; here channel-last, so axis=-1), momentum 0.9, eps 1e-5. Optional
-`bn_axis_name` enables cross-device (sync) BN when training data-parallel
-over a mesh — a TPU-native upgrade the single-GPU reference could not have.
+channel; here channel-last, so axis=-1), momentum 0.9, eps 1e-5.  Under a
+jit over a data-parallel mesh its batch statistics are global-batch (sync
+BN): the mean over the sharded batch axis is a cross-device reduction.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import zlib
+from typing import Callable, NamedTuple
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
+from jax.nn import initializers as init
 
 from dh3d_tpu import ops
+
+
+class Var(NamedTuple):
+    """Spec leaf: one variable of a collection."""
+
+    collection: str  # "params" | "batch_stats"
+    shape: tuple
+    init: Callable  # (key, shape, dtype) -> array
+
+
+def param(shape, initializer):
+    return Var("params", tuple(shape), initializer)
+
+
+def init_from_spec(spec, rng):
+    """Materialize a spec into {"params": ..., "batch_stats": ...}.
+
+    Each variable's key is `rng` folded with a hash of its path, so a value
+    depends on the seed and its path, not on the order of construction."""
+    out = {"params": {}, "batch_stats": {}}
+
+    def walk(node, path):
+        for name, v in node.items():
+            if isinstance(v, Var):
+                key = jax.random.fold_in(
+                    rng, zlib.crc32("/".join(path + (name,)).encode()))
+                dst = out[v.collection]
+                for p in path:
+                    dst = dst.setdefault(p, {})
+                dst[name] = v.init(key, v.shape, jnp.float32)
+            else:
+                walk(v, path + (name,))
+
+    walk(spec, ())
+    return out
 
 
 def l2_normalize(x, axis=-1, epsilon=1e-8):
@@ -32,254 +79,135 @@ def l2_normalize(x, axis=-1, epsilon=1e-8):
     return x * (1.0 / jnp.sqrt(jnp.maximum(sq, epsilon)))
 
 
-class BatchNorm(nn.Module):
-    """Channel BN matching the reference placement; set `axis_name` to psum
-    stats across a mesh axis (sync BN) in data-parallel training."""
+# ------------------------------- BatchNorm -------------------------------
 
-    use_running_average: bool = True
-    momentum: float = 0.9
-    epsilon: float = 1e-5
-    axis_name: Optional[str] = None
-
-    @nn.compact
-    def __call__(self, x):
-        return nn.BatchNorm(
-            use_running_average=self.use_running_average,
-            momentum=self.momentum,
-            epsilon=self.epsilon,
-            axis_name=self.axis_name,
-            name="bn",
-        )(x)
+def batch_norm_spec(c):
+    return {"bn": {"scale": param((c,), init.ones),
+                   "bias": param((c,), init.zeros),
+                   "mean": Var("batch_stats", (c,), init.zeros),
+                   "var": Var("batch_stats", (c,), init.ones)}}
 
 
-class FlexConv(nn.Module):
-    """Flex convolution layer (`core/layers.py:178-339`).
+def batch_norm(p, s, x, train, momentum=0.9, epsilon=1e-5):
+    """Channel BN (statistics over every axis but the last, in float32).
+
+    Train mode normalizes with the batch statistics (variance as
+    E[x^2] - E[x]^2, clipped at 0) and returns the running averages
+    updated with `momentum`; eval mode uses the running averages."""
+    p, s = p["bn"], s["bn"]
+    x = x.astype(jnp.float32)
+    if train:
+        axes = tuple(range(x.ndim - 1))
+        mean = jnp.mean(x, axes)
+        var = jnp.maximum(0.0, jnp.mean(jnp.square(x), axes)
+                          - jnp.square(mean))
+        s = {"mean": momentum * s["mean"] + (1.0 - momentum) * mean,
+             "var": momentum * s["var"] + (1.0 - momentum) * var}
+    else:
+        mean, var = s["mean"], s["var"]
+    y = x - mean
+    mul = jax.lax.rsqrt(var + epsilon) * p["scale"]
+    return y * mul + p["bias"], {"bn": s}
+
+
+# ------------------------------ dense layers ------------------------------
+
+def dense_spec(din, dout, kernel_init=init.he_normal(),
+               bias_init=init.zeros):
+    return {"kernel": param((din, dout), kernel_init),
+            "bias": param((dout,), bias_init)}
+
+
+def dense(p, x, dtype=None):
+    """x @ kernel + bias, in `dtype` (default: the promoted input type)."""
+    kernel, bias = p["kernel"], p["bias"]
+    dtype = dtype or jnp.result_type(x, kernel, bias)
+    x, kernel, bias = (a.astype(dtype) for a in (x, kernel, bias))
+    return jnp.dot(x, kernel) + bias
+
+
+def conv1x1_spec(din, dout, bn=True):
+    spec = {"dense": dense_spec(din, dout)}
+    if bn:
+        spec["norm"] = batch_norm_spec(dout)
+    return spec
+
+
+def conv1x1(p, s, x, train, act=jax.nn.relu, dtype=None):
+    """feature_conv1d_1 (`core/tf_utils.py:99-109`): pointwise Dense, then
+    BN when the spec has one, then `act` (default relu: tensorpack's
+    BNReLU; `act=None` leaves it linear)."""
+    x = dense(p["dense"], x, dtype)
+    if "norm" in p:
+        x, s = batch_norm(p["norm"], s["norm"], x, train)
+        s = {"norm": s}
+    if act is not None:
+        x = act(x)
+    return x, s
+
+
+# --------------------------- point-cloud layers ---------------------------
+
+def flexconv_bn_spec(din, dout, dp=3):
+    """flexconv_withBatchnorm (`core/tf_utils.py:48-64`)."""
+    return {
+        "flexconv": {
+            "position_theta": param(
+                (dp, din, dout),
+                init.glorot_uniform(in_axis=(0, 1), out_axis=2)),
+            "position_bias": param((din, dout), init.zeros),
+            "feature_bias": param((dout,), init.zeros),
+        },
+        "norm": batch_norm_spec(dout),
+    }
+
+
+def flexconv_bn(p, s, feat, pos, nbh, train, dtype=None):
+    """Flex convolution (`core/layers.py:178-339`) -> BN -> relu.
 
     `dtype` is the compute dtype (mixed precision): params are stored f32
     and cast at use; the neighbor gather + moment matmul run in `dtype`
-    with f32 accumulation (preferred_element_type in the op).
-    `method='banded'` routes the moment reduction through the Morton-band
-    kernel (requires Morton-ordered inputs for speed; exact either way).
-    """
-
-    features: int
-    use_feature_bias: bool = True
-    dtype: Optional[object] = None
-    method: str = "gather"
-    assume_inband: bool = False
-    fast_grads: bool = False  # single-plane bf16 moments backward
-    window: int = 512  # banded kernel key window (window == M: full table)
-
-    @nn.compact
-    def __call__(self, feat, pos, nbh, plan=None):
-        din, dp = feat.shape[-1], pos.shape[-1]
-        theta = self.param(
-            "position_theta",
-            nn.initializers.glorot_uniform(in_axis=(0, 1), out_axis=2),
-            (dp, din, self.features),
-        )
-        pos_bias = self.param(
-            "position_bias", nn.initializers.zeros, (din, self.features)
-        )
-        if self.dtype is not None:
-            # positions stay f32 (geometric precision); the op casts the
-            # deltas after subtraction
-            feat = feat.astype(self.dtype)
-            theta = theta.astype(self.dtype)
-            pos_bias = pos_bias.astype(self.dtype)
-        y = ops.flex_conv(feat, pos, nbh, theta, pos_bias,
-                          method=self.method, window=self.window,
-                          assume_inband=self.assume_inband,
-                          bwd_lo=not self.fast_grads, plan=plan)
-        if self.use_feature_bias:
-            y = y + self.param(
-                "feature_bias", nn.initializers.zeros, (self.features,)
-            )
-        return y
+    with f32 accumulation.  Positions stay f32 (geometric precision; the
+    op casts the deltas after subtraction).  BN/activation stay f32."""
+    fp = p["flexconv"]
+    theta, pos_bias = fp["position_theta"], fp["position_bias"]
+    if dtype is not None:
+        feat, theta, pos_bias = (a.astype(dtype)
+                                 for a in (feat, theta, pos_bias))
+    y = ops.flex_conv(feat, pos, nbh, theta, pos_bias) + fp["feature_bias"]
+    y, s = batch_norm(p["norm"], s["norm"], y, train)
+    return jax.nn.relu(y), {"norm": s}
 
 
-class FlexConvBN(nn.Module):
-    """flexconv_withBatchnorm (`core/tf_utils.py:48-64`): flexconv (linear)
-    -> BN -> relu.  BN/activation stay f32 for stability."""
-
-    features: int
-    use_running_average: bool = True
-    bn_axis_name: Optional[str] = None
-    act: Callable = nn.relu
-    dtype: Optional[object] = None
-    method: str = "gather"
-    assume_inband: bool = False
-    fast_grads: bool = False
-    window: int = 512
-
-    @nn.compact
-    def __call__(self, feat, pos, nbh, plan=None):
-        x = FlexConv(self.features, dtype=self.dtype, method=self.method,
-                     assume_inband=self.assume_inband,
-                     fast_grads=self.fast_grads, window=self.window,
-                     name="flexconv")(feat, pos, nbh, plan=plan)
-        x = BatchNorm(
-            self.use_running_average, axis_name=self.bn_axis_name, name="norm"
-        )(x)
-        return self.act(x)
+def conv_pointset_bn_spec(din, dout):
+    """convolution_pointset_withBatchnorm (`core/tf_utils.py:67-83`);
+    theta [Din, Dout], bias [Dout] (`core/layers.py:564-`)."""
+    return {"conv": {"theta": param((din, dout), init.glorot_uniform()),
+                     "bias": param((dout,), init.zeros)},
+            "norm": batch_norm_spec(dout)}
 
 
-class ConvPointset(nn.Module):
-    """convolution_pointset layer (`core/layers.py:564-`);
-    theta [Din, Dout], bias [Dout]."""
-
-    features: int
-    method: str = "gather"
-    assume_inband: bool = False
-    window: int = 512
-
-    @nn.compact
-    def __call__(self, feat, nbh, plan=None):
-        din = feat.shape[-1]
-        theta = self.param(
-            "theta", nn.initializers.glorot_uniform(), (din, self.features)
-        )
-        bias = self.param("bias", nn.initializers.zeros, (self.features,))
-        return ops.conv_pointset(feat, nbh, theta, bias,
-                                 method=self.method, window=self.window,
-                                 assume_inband=self.assume_inband,
-                                 plan=plan)
+def conv_pointset_bn(p, s, feat, nbh, train):
+    y = ops.conv_pointset(feat, nbh, p["conv"]["theta"], p["conv"]["bias"])
+    y, s = batch_norm(p["norm"], s["norm"], y, train)
+    return jax.nn.relu(y), {"norm": s}
 
 
-class ConvPointsetBN(nn.Module):
-    """convolution_pointset_withBatchnorm (`core/tf_utils.py:67-83`)."""
-
-    features: int
-    use_running_average: bool = True
-    bn_axis_name: Optional[str] = None
-    dtype: Optional[object] = None
-    method: str = "gather"
-    assume_inband: bool = False
-    window: int = 512
-
-    @nn.compact
-    def __call__(self, feat, nbh, plan=None):
-        x = ConvPointset(self.features, method=self.method,
-                         assume_inband=self.assume_inband,
-                         window=self.window,
-                         name="conv")(feat, nbh, plan=plan)
-        x = BatchNorm(
-            self.use_running_average, axis_name=self.bn_axis_name, name="norm"
-        )(x)
-        return nn.relu(x)
+def se_res_bottleneck_spec(ch_out):
+    """se_res_bottleneck (`core/backbones.py:45-55`)."""
+    return {"f1": conv1x1_spec(ch_out, ch_out // 4, bn=False),
+            "f2": conv1x1_spec(ch_out // 4, ch_out, bn=False)}
 
 
-class Conv1x1(nn.Module):
-    """feature_conv1d_1 (`core/tf_utils.py:99-109`): pointwise Dense, default
-    activation BNReLU (tensorpack), optionally plain linear."""
+def se_res_bottleneck(p, x, pool_x):
+    """Per-point squeeze-excite on pooled features, residual, relu.
 
-    features: int
-    bn: bool = True
-    act: Optional[Callable] = nn.relu
-    use_running_average: bool = True
-    bn_axis_name: Optional[str] = None
-    dtype: Optional[object] = None
-
-    @nn.compact
-    def __call__(self, x):
-        x = nn.Dense(
-            self.features, kernel_init=nn.initializers.he_normal(),
-            dtype=self.dtype, name="dense"
-        )(x)
-        if self.bn:
-            x = BatchNorm(
-                self.use_running_average,
-                axis_name=self.bn_axis_name,
-                name="norm",
-            )(x)
-        if self.act is not None:
-            x = self.act(x)
-        return x
-
-
-class FlexAvg(nn.Module):
-    """Flex_Avg layer (`core/layers.py:342-436`): a frozen flex_conv with
-    zero theta and identity bias == neighborhood sum; the caller scales by
-    1/knn (`core/backbones.py:82`).  Kept as a module for layer-surface
-    parity; the fused op is `ops.flex_avg`."""
-
-    filters: int
-
-    @nn.compact
-    def __call__(self, feat, pos, nbh):
-        del pos  # zero theta -> position-independent
-        assert feat.shape[-1] == self.filters, (
-            "Flex_Avg identity bias requires Din == Dout"
-        )
-        return ops.flex_avg(feat, nbh)
-
-
-class FlexConvTranspose(nn.Module):
-    """FlexConvolutionTranspose layer (`core/layers.py:483-561`): exposed
-    for op-surface parity — unused by the DH3D graph (SURVEY.md §2.1 N4)."""
-
-    features: int
-    use_feature_bias: bool = True
-
-    @nn.compact
-    def __call__(self, feat, pos, nbh):
-        din, dp = feat.shape[-1], pos.shape[-1]
-        theta = self.param(
-            "position_theta",
-            nn.initializers.glorot_uniform(in_axis=(0, 1), out_axis=2),
-            (dp, din, self.features),
-        )
-        pos_bias = self.param(
-            "position_bias", nn.initializers.zeros, (din, self.features)
-        )
-        y = ops.flex_deconv(feat, pos, nbh, theta, pos_bias)
-        if self.use_feature_bias:
-            y = y + self.param(
-                "feature_bias", nn.initializers.zeros, (self.features,)
-            )
-        return y
-
-
-class SEBottleneck(nn.Module):
-    """se_bottleneck (`core/backbones.py:33-42`): the non-residual variant
-    (no shortcut/relu).
-
+    Unlike classic SE there is NO global pooling — `pool_x` is the
+    neighborhood-pooled feature map and the two 1x1 convs act per point.
     The squeeze convs are PLAIN conv + activation — no BatchNorm: the
     reference passes `ac_func=tf.nn.relu`/`tf.nn.sigmoid` to
     `feature_conv1d_1` (`core/backbones.py:37-38`), which *replaces* the
-    default BNReLU activation (`core/tf_utils.py:99,105`).  BN before the
-    sigmoid gate would re-center gates toward 0.5 regardless of input scale.
-    """
-
-    ch_out: int
-    use_running_average: bool = True  # unused (no BN); kept for API parity
-    bn_axis_name: Optional[str] = None
-
-    @nn.compact
-    def __call__(self, x, pool_x):
-        s = Conv1x1(self.ch_out // 4, bn=False, act=nn.relu,
-                    name="f1")(pool_x)
-        s = Conv1x1(self.ch_out, bn=False, act=nn.sigmoid, name="f2")(s)
-        return x * s
-
-
-class SEResBottleneck(nn.Module):
-    """se_res_bottleneck (`core/backbones.py:45-55`): per-point
-    squeeze-excite on pooled features, residual, relu.
-
-    Unlike classic SE there is NO global pooling — `pool_l` is the
-    neighborhood-pooled feature map and the two 1x1 convs act per point.
-    The squeeze convs carry no BatchNorm (see `SEBottleneck`).
-    """
-
-    ch_out: int
-    use_running_average: bool = True  # unused (no BN); kept for API parity
-    bn_axis_name: Optional[str] = None
-
-    @nn.compact
-    def __call__(self, x, pool_x):
-        shortcut = x
-        s = Conv1x1(self.ch_out // 4, bn=False, act=nn.relu,
-                    name="f1")(pool_x)
-        s = Conv1x1(self.ch_out, bn=False, act=nn.sigmoid, name="f2")(s)
-        return nn.relu(shortcut + x * s)
+    default BNReLU activation (`core/tf_utils.py:99,105`)."""
+    s = jax.nn.relu(dense(p["f1"]["dense"], pool_x))
+    s = jax.nn.sigmoid(dense(p["f2"]["dense"], s))
+    return jax.nn.relu(x + x * s)

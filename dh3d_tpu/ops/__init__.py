@@ -1,4 +1,4 @@
-"""TPU-native op surface — full parity with the reference's custom CUDA ops.
+"""Op surface — full parity with the reference's custom CUDA ops.
 
 Reference op surface:
   `user_ops/__init__.py:50-59` (flex family + knn) and
@@ -26,6 +26,7 @@ from dh3d_tpu.ops.interpolate import (
     three_nn,
 )
 from dh3d_tpu.ops.knn import knn_bruteforce, knn_bruteforce_pairwise
+from dh3d_tpu.ops.morton import morton_codes, morton_perm
 from dh3d_tpu.ops.sampling import (
     farthest_point_sample,
     gather_point,
@@ -50,6 +51,8 @@ __all__ = [
     "three_nn",
     "knn_bruteforce",
     "knn_bruteforce_pairwise",
+    "morton_codes",
+    "morton_perm",
     "farthest_point_sample",
     "gather_point",
     "prob_sample",

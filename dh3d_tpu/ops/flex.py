@@ -1,11 +1,11 @@
-"""FlexConv op family, TPU-native.
+"""FlexConv op family.
 
 The reference implements these as hand-written CUDA kernels with atomicAdd
-scatter backward passes (`user_ops/kernels/*.cu.cc`).  On TPU every op is
-re-expressed as gather -> moment reduction -> one MXU matmul, so (a) the
-whole FLOP budget lands on the systolic array, and (b) JAX autodiff yields
-deterministic gather/segment-sum gradients for free — no atomics, no custom
-backward kernels needed.
+scatter backward passes (`user_ops/kernels/*.cu.cc`).  Here every op is
+re-expressed as gather -> moment reduction -> one matmul, and JAX autodiff
+derives the backward pass (gather transposes to a scatter-add, which XLA
+may implement with atomics on a GPU, so gradient sums can differ in the
+last bits from run to run).
 
 Ground-truth semantics (CPU reference kernels):
   flex_conv      `user_ops/kernels/flex_conv_kernel.cc:25-167`
@@ -35,118 +35,6 @@ def gather_neighbors(values, neighborhood):
     return jax.vmap(lambda v, idx: v[idx])(values, neighborhood)
 
 
-@jax.custom_jvp
-def _hilo_split(x):
-    """Split f32 x into (hi, lo) with hi exactly bf16-representable.
-
-    hi is built by MASKING mantissa bits: XLA's algebraic simplifier
-    (allow_excess_precision, default on) strips an f32->bf16->f32 convert
-    chain, which silently turns the lo residual into exact zero (measured
-    on device: convert-chain hi/lo output bit-identical to plain bf16).
-    Bitcasts survive simplification; truncation rather than
-    round-to-nearest only costs one ulp on lo.  The custom JVP routes the
-    full tangent through hi (bitcast has no autodiff rule, and for any
-    linear consumer d(hi+lo)/dx = 1 either way)."""
-    bits = jax.lax.bitcast_convert_type(x, jnp.uint32)
-    hi = jax.lax.bitcast_convert_type(
-        bits & jnp.uint32(0xFFFF0000), jnp.float32)
-    return hi, x - hi
-
-
-@_hilo_split.defjvp
-def _hilo_split_jvp(primals, tangents):
-    (x,), (dx,) = primals, tangents
-    hi, lo = _hilo_split(x)
-    return (hi, lo), (dx, jnp.zeros_like(dx))
-
-
-def _mixed_tracer_const(*arrays):
-    """True when some args are tracers and others concrete arrays.
-
-    Concrete values used alongside tracers lower to embedded jit
-    constants, which XLA prefetches into alternate memory (S(1)) before
-    a Mosaic custom call — and this backend's custom calls misread such
-    operands (observed: position rows 1-2 read wrong, silently corrupt
-    moments; see the pitfall note in banded_pallas.py).  Dispatchers
-    route these calls to the
-    exact XLA formulations instead; all-traced (jitted production) and
-    all-concrete (eager) calls keep the Pallas kernels."""
-    from jax.core import Tracer
-
-    tr = [isinstance(a, Tracer) for a in arrays if a is not None]
-    return any(tr) and not all(tr)
-
-
-def _banded_ok(features, neighborhood, tile):
-    """Banded kernel preconditions: TPU backend and tile-divisible sizes.
-
-    No channel threshold: the one-hot matmul's cost is C-independent up to
-    one lane tile (features are padded to 128 inside the kernel), and it
-    beats the issue-rate-bound gather even at Din=3 (initconv: 11.1 ms
-    gather vs ~3 ms banded at [20, 8192])."""
-    B, M, C = features.shape
-    N = neighborhood.shape[1]
-    return (jax.default_backend() == "tpu"
-            and N % tile == 0 and M % tile == 0 and N >= 2 * tile
-            and not _mixed_tracer_const(features, neighborhood))
-
-
-def _flex_moments_banded(features, positions, neighborhood, tile, window,
-                         fast, assume_inband=False, bwd_lo=True,
-                         plan=None):
-    """Moment reduction via the banded kernels (ops/pallas/banded_pallas.py).
-
-    Production paths (fast, self-set, Dp=3): the specialized moments
-    kernel — neighbor-count matmul with position-scaled hi/lo columns, no
-    VPU accumulation loop.  With `plan` (an `oob_plan` over this
-    neighborhood level): EXACT via the slot-compacted out-of-band
-    correction (`flex_moments_banded_planned` — the shipping Morton
-    default); with `assume_inband`: in-band entries only (approximate
-    mode, banded-kNN indices are in-band by construction).
-    Otherwise: the generic weighted-sum kernel with explicit [1, delta]
-    weights (exact for any index distribution via its oob correction)."""
-    if _mixed_tracer_const(features, positions, neighborhood):
-        return _flex_moments(features, positions, neighborhood)
-    B, N, K = neighborhood.shape
-    if (fast and positions.shape[1] == N and positions.shape[-1] == 3
-            and (plan is not None or assume_inband)):
-        from dh3d_tpu.ops.pallas.banded_pallas import (
-            flex_moments_banded_fast,
-            flex_moments_banded_planned,
-        )
-
-        pos0 = jnp.take_along_axis(
-            positions, neighborhood[:, :, 0][..., None], axis=1)
-        # keep_pad: moments stay at the kernel's lane-padded channel
-        # count; flex_conv pads the weight rows to match (exact — the
-        # padded features are zeros)
-        if plan is not None:
-            return flex_moments_banded_planned(
-                features, positions, pos0, neighborhood, plan, tile,
-                window, plan.we, True, False, bwd_lo)
-        return flex_moments_banded_fast(features, positions, pos0,
-                                        neighborhood, tile, window,
-                                        False, True, bwd_lo)
-    p_k = gather_neighbors(positions, neighborhood)  # [B,N,K,Dp] small
-    delta = p_k - p_k[:, :, :1, :]
-    ones = jnp.ones_like(delta[..., :1])
-    weights = jnp.concatenate([ones, delta], axis=-1)  # [B,N,K,1+Dp]
-    if plan is not None:
-        from dh3d_tpu.ops.pallas.banded_pallas import (
-            banded_weighted_sum_planned,
-        )
-
-        return banded_weighted_sum_planned(
-            features, neighborhood, weights, plan, tile, window, plan.we,
-            fast, False)
-    from dh3d_tpu.ops.pallas.banded_pallas import banded_weighted_sum
-
-    return banded_weighted_sum(
-        features, neighborhood, weights, None, tile, window, fast, False,
-        assume_inband,
-    )  # [B, N, (1+Dp)*Din], p-major == moment layout
-
-
 def _flex_moments(features, positions, neighborhood):
     """Neighborhood moments for flex_conv.
 
@@ -171,9 +59,7 @@ def _flex_moments(features, positions, neighborhood):
     )
 
 
-def flex_conv(features, positions, neighborhood, theta, bias,
-              method="gather", tile=256, window=512, fast=True,
-              assume_inband=False, bwd_lo=True, plan=None):
+def flex_conv(features, positions, neighborhood, theta, bias):
     """Flex convolution: linear-in-position dynamic filter over neighborhoods.
 
     Args:
@@ -182,94 +68,32 @@ def flex_conv(features, positions, neighborhood, theta, bias,
       neighborhood: [B, N, K] int32, entry k=0 must be the center point.
       theta: [Dp, Din, Dout] spatial weights.
       bias: [Din, Dout] position-independent weights.
-      method: 'gather' (XLA gather moments, exact reference parity) or
-        'banded' (Morton-band one-hot-matmul kernel — requires the cloud
-        to be Morton-ordered for speed; exact for any order via the
-        out-of-band correction, `fast` rounds features to bf16).
-      tile/window/fast: banded-kernel parameters.
-      bwd_lo: moments-backward cotangent precision (False = single-plane
-        bf16, cfg.fast_grads; threaded statically per call).
-      plan: optional `oob_plan` over this neighborhood level (shared by
-        every banded op on it) — EXACT neighbor routing for arbitrary
-        indices via the slot-compacted correction (the shipping Morton
-        default; `assume_inband` is the approximate legacy mode).
 
     Returns:
       [B, N, Dout].
     """
     Dp, Din, Dout = theta.shape
-    if method == "banded" and _banded_ok(features, neighborhood, tile):
-        m = _flex_moments_banded(features, positions, neighborhood, tile,
-                                 window, fast, assume_inband, bwd_lo,
-                                 plan)
-        m = m.astype(features.dtype)
-    else:
-        m = _flex_moments(features, positions, neighborhood)
+    m = _flex_moments(features, positions, neighborhood)
     w = jnp.concatenate([bias[None], theta], axis=0)  # [1+Dp, Din, Dout]
-    c_m = m.shape[-1] // (1 + Dp)
-    if c_m != Din:
-        # keep_pad moments: zero-pad the weight rows to the kernel's
-        # lane-padded channel count (padded feature channels are zeros,
-        # so this is exact) — avoids slicing/re-laying-out the big
-        # [B, N, (1+Dp)*C] moment tensor between kernel and matmul
-        w = jnp.pad(w, ((0, 0), (0, c_m - Din), (0, 0)))
-    w = w.reshape((1 + Dp) * c_m, Dout)
-    return jnp.einsum("bnc,cd->bnd", m, w, precision="highest", preferred_element_type=jnp.float32)
+    w = w.reshape((1 + Dp) * Din, Dout)
+    return jnp.einsum("bnc,cd->bnd", m, w, precision="highest",
+                      preferred_element_type=jnp.float32)
 
 
-def flex_avg(features, neighborhood, method="gather", tile=256, window=512,
-             fast=True, assume_inband=False, plan=None):
+def flex_avg(features, neighborhood):
     """Neighborhood sum — the `Flex_Avg` layer (`core/layers.py:342-436`):
     a flex_conv with zero theta and identity bias reduces to
     out[n] = sum_k feat[nk]; the caller scales by 1/K (`core/backbones.py:82`).
     """
-    if method == "banded" and _banded_ok(features, neighborhood, tile):
-        # Derive from a traced operand so the weights stay a tracer under
-        # jit: a concrete jnp.ones would become an embedded jit constant
-        # next to traced operands — the S(1)-prefetch misread pitfall
-        # (`_mixed_tracer_const`), which the guard can't see for
-        # self-constructed arrays.
-        ones = jnp.ones_like(neighborhood, dtype=features.dtype)[..., None]
-        if plan is not None:
-            from dh3d_tpu.ops.pallas.banded_pallas import (
-                banded_weighted_sum_planned,
-            )
-
-            return banded_weighted_sum_planned(
-                features, neighborhood, ones, plan, tile, window, plan.we,
-                fast, False,
-            ).astype(features.dtype)
-        from dh3d_tpu.ops.pallas.banded_pallas import banded_weighted_sum
-
-        return banded_weighted_sum(
-            features, neighborhood, ones, None, tile, window, fast, False,
-            assume_inband,
-        ).astype(features.dtype)
     return jnp.sum(gather_neighbors(features, neighborhood), axis=2)
 
 
-def flex_pool(features, neighborhood, method="gather", tile=256,
-              window=512, fast=True, assume_inband=False, plan=None):
+def flex_pool(features, neighborhood):
     """Max-pool over each point's neighborhood.
 
     features [B,N,D], neighborhood [B,M,K] -> (out [B,M,D], argmax [B,M,D]
     int32 holding *global* point ids, `flex_pool_kernel.cc:50-55`).
-    method='banded' uses the Morton-band max kernel (exact via scatter-max
-    correction; argmax ties between in-band and out-of-band candidates
-    resolve to in-band — gradient routing differs only on exact float
-    ties).  With `plan`: the slot-compacted exact correction
-    (`banded_max_planned`) — exact max/argmax for arbitrary indices.
     """
-    if method == "banded" and _banded_ok(features, neighborhood, tile):
-        if plan is not None:
-            from dh3d_tpu.ops.pallas.banded_pallas import banded_max_planned
-
-            return banded_max_planned(features, neighborhood, plan, tile,
-                                      window, plan.we, fast, False)
-        from dh3d_tpu.ops.pallas.banded_pallas import banded_max
-
-        return banded_max(features, neighborhood, tile, window, fast,
-                          False, assume_inband)
     f_k = gather_neighbors(features, neighborhood)  # [B,M,K,D]
     out = jnp.max(f_k, axis=2)
     arg_k = jnp.argmax(f_k, axis=2)  # [B,M,D] in-neighborhood slot
@@ -302,7 +126,7 @@ def flex_deconv(features, positions, neighborhood, theta, bias):
     wmat = jnp.concatenate([bias[None], theta], axis=0)  # [1+Dp,Din,Dout]
     contrib = jnp.einsum("bnkp,bnd,pde->bnke", w, f_self, wmat,
                          precision="highest", preferred_element_type=jnp.float32)
-    # scatter-add into neighbor slots — deterministic XLA segment sum.
+    # scatter-add into neighbor slots (an XLA segment sum)
     flat_idx = (neighborhood + (jnp.arange(B, dtype=neighborhood.dtype)
                                 * N)[:, None, None]).reshape(-1)
     out = jax.ops.segment_sum(
@@ -311,9 +135,7 @@ def flex_deconv(features, positions, neighborhood, theta, bias):
     return out.reshape(B, N, Dout)
 
 
-def conv_pointset(features, neighborhood, theta, bias, method="gather",
-                  tile=256, window=512, fast=True, assume_inband=False,
-                  plan=None):
+def conv_pointset(features, neighborhood, theta, bias):
     """1x1 conv on neighborhood feature *differences* ("conv_relative",
     DH3D's own op, `conv_pointset_kernel.cc:49-64`):
 
@@ -321,57 +143,8 @@ def conv_pointset(features, neighborhood, theta, bias, method="gather",
                      + bias[dout]           # bias added once (at k_==0)
 
     features [B,N,Din], neighborhood [B,N,K], theta [Din,Dout], bias [Dout]
-    -> [B,N,Dout].  method='banded' computes the neighborhood sum on the
-    banded kernel (sum_k f_k - K*f0), with the features hi/lo-split into
-    two bf16 channels in fast mode so raw-position-scale inputs keep ~16
-    mantissa bits through the K*f0 cancellation (initconv feeds raw xyz:
-    measured 11.9 ms gather vs 5.4 ms banded at [20, 8192], rel err 2e-3).
+    -> [B,N,Dout].
     """
-    K = neighborhood.shape[-1]
-    if method == "banded" and _banded_ok(features, neighborhood, tile):
-        def _wsum(f, fast_):
-            ones = jnp.ones_like(neighborhood, dtype=f.dtype)[..., None]
-            if plan is not None:
-                from dh3d_tpu.ops.pallas.banded_pallas import (
-                    banded_weighted_sum_planned,
-                )
-
-                return banded_weighted_sum_planned(
-                    f, neighborhood, ones, plan, tile, window, plan.we,
-                    fast_, False)
-            from dh3d_tpu.ops.pallas.banded_pallas import (
-                banded_weighted_sum,
-            )
-
-            return banded_weighted_sum(
-                f, neighborhood, ones, None, tile, window, fast_, False,
-                assume_inband)
-
-        # Tracer-derived ones (not a trace-time constant) — see flex_avg.
-        Din = features.shape[-1]
-        if fast:
-            # hi/lo-split the features into two bf16 channels: the model
-            # feeds RAW XYZ here (initconv), whose ~100 m absolute scale
-            # in a plain bf16 window swamps the ~0.5 m neighborhood
-            # differences after the K*f0 cancellation (measured 80%
-            # relative error at [20, 8192]).  bf16x2 carries ~16 mantissa
-            # bits; the channel pad to one lane tile absorbs the 2x width
-            # for free, so this costs nothing over the plain fast path.
-            hi, lo = _hilo_split(features.astype(jnp.float32))
-            f2 = jnp.concatenate([hi, lo], axis=-1)  # [B, N, 2*Din]
-            nsum2 = _wsum(f2, True)
-            nsum = (nsum2[..., :Din]
-                    + nsum2[..., Din:]).astype(features.dtype)
-        else:
-            nsum = _wsum(features, False).astype(features.dtype)
-        f0 = jnp.take_along_axis(features, neighborhood[:, :, :1], axis=1)
-        diff_sum = nsum - K * f0
-        return (
-            jnp.einsum("bnd,de->bne", diff_sum, theta,
-                       precision="highest",
-                       preferred_element_type=jnp.float32)
-            + bias
-        )
     f_k = gather_neighbors(features, neighborhood)  # [B,N,K,Din]
     f0 = f_k[:, :, :1, :]
     diff_sum = jnp.sum(f_k - f0, axis=2)  # [B,N,Din]

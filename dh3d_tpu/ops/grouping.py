@@ -1,4 +1,4 @@
-"""Grouping ops (PointNet++ family), TPU-native.
+"""Grouping ops (PointNet++ family).
 
 Ground-truth semantics: `tf_ops/grouping/tf_grouping_g.cu` —
   query_ball_point   `:3-52`   (first nsample ids within radius, fill with

@@ -1,4 +1,4 @@
-"""Three-nearest-neighbor interpolation, TPU-native.
+"""Three-nearest-neighbor interpolation.
 
 Ground-truth semantics: `tf_ops/interpolation/tf_interpolate.cpp` —
   three_nn           `:60-103` (3 nearest by *squared* L2; dist is squared)
@@ -15,31 +15,14 @@ import jax
 import jax.numpy as jnp
 
 
-def three_nn(xyz1, xyz2, impl="auto", window=None):
+def three_nn(xyz1, xyz2):
     """3 nearest points of xyz2 for every point of xyz1.
 
     xyz1: [B, N, 3] queries (full-resolution points);
     xyz2: [B, M, 3] known points (subsampled set).
     Returns (dist [B, N, 3] SQUARED distances, idx [B, N, 3] int32),
     ascending — matching `tf_interpolate.cpp:72` (d = squared L2, no sqrt).
-    `window` restricts candidates to the Morton band (both clouds sorted
-    along the same curve; see ops/knn.py) — in-band by construction for
-    the banded `three_interpolate`.
     """
-    from dh3d_tpu.ops.flex import _mixed_tracer_const
-
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if (impl == "pallas" and xyz1.shape[-1] == 3
-            and not _mixed_tracer_const(xyz1, xyz2)):
-        from dh3d_tpu.ops.pallas.knn_pallas import knn_banded, knn_pallas
-
-        if window is not None and xyz1.shape[1] % 256 == 0 \
-                and window <= xyz2.shape[1]:
-            idx, d2 = knn_banded(xyz1, xyz2, 3, window=window)
-        else:
-            idx, d2 = knn_pallas(xyz1, xyz2, 3)
-        return d2, idx
     qn = jnp.einsum("bnd,bmd->bnm", xyz1, xyz2,
                     precision="highest", preferred_element_type=jnp.float32)
     q2 = jnp.sum(xyz1 * xyz1, axis=-1)[:, :, None]
@@ -49,42 +32,12 @@ def three_nn(xyz1, xyz2, impl="auto", window=None):
     return -neg, idx.astype(jnp.int32)
 
 
-def three_interpolate(points, idx, weight, method="gather", tile=256,
-                      window=256, fast=True, assume_inband=False,
-                      plan=None):
+def three_interpolate(points, idx, weight):
     """Weighted interpolation of 3 neighbors (`tf_interpolate.cpp:107-127`).
 
     points: [B, M, C] features of known points; idx/weight: [B, N, 3].
     Returns [B, N, C]: out[n] = sum_j weight[n,j] * points[idx[n,j]].
-    method='banded' uses the Morton-band one-hot-matmul kernel (P=1
-    weighted sum) instead of the XLA gather — the dominant cost of the
-    upsample at [20, 8192, 256] (docs/PERF_NOTES.md).  With `plan` (an
-    `oob_plan(idx, M, tile, window)`): exact for arbitrary indices via
-    the slot-compacted correction.
     """
-    from dh3d_tpu.ops.flex import _mixed_tracer_const
-
-    B, M, C = points.shape
-    N = idx.shape[1]
-    if (method == "banded" and jax.default_backend() == "tpu"
-            and C >= 32 and N % tile == 0 and M % tile == 0
-            and M >= window
-            and not _mixed_tracer_const(points, idx, weight)):
-        if plan is not None:
-            from dh3d_tpu.ops.pallas.banded_pallas import (
-                banded_weighted_sum_planned,
-            )
-
-            return banded_weighted_sum_planned(
-                points, idx, weight[..., None], plan, tile, window,
-                plan.we, fast, False,
-            ).astype(points.dtype)
-        from dh3d_tpu.ops.pallas.banded_pallas import banded_weighted_sum
-
-        return banded_weighted_sum(
-            points, idx, weight[..., None], None, tile, window, fast,
-            False, assume_inband,
-        ).astype(points.dtype)
     gathered = jax.vmap(lambda p, i: p[i])(points, idx)  # [B,N,3,C]
     return jnp.einsum("bnj,bnjc->bnc", weight, gathered,
                       precision="highest", preferred_element_type=jnp.float32)

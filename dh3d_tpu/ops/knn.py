@@ -1,4 +1,4 @@
-"""Brute-force k-nearest-neighbors for point clouds, TPU-native.
+"""Brute-force k-nearest-neighbors for point clouds.
 
 Ground-truth semantics: reference CPU kernel
 `user_ops/kernels/knn_bruteforce_kernel.cc:25-72` — for every point n of a
@@ -7,13 +7,9 @@ indices+distances sorted ascending; neighbor k=0 is the point itself
 (distance 0).  The reference GPU kernel caps N at 8192
 (`user_ops/kernels/knn_bruteforce_kernel_gpu.cu.cc:213-221`), forcing a host
 (sklearn) fallback for larger clouds (`core/model.py:38,84-96`).  No such
-cap here: the [N, N] distance matrix is never fully materialized.
-
-Two backends behind one API:
-  - TPU: the Pallas streaming-min kernel (ops/pallas/knn_pallas.py), exact
-    or packed-fast mode;
-  - elsewhere: chunked XLA — queries processed in `lax.scan` chunks, each
-    one MXU matmul + top_k.
+cap here: the [N, N] distance matrix is never fully materialized —
+queries are processed in `lax.scan` chunks, each one matmul-identity
+distance block + `lax.top_k`.
 """
 
 from __future__ import annotations
@@ -35,7 +31,7 @@ def _chunk_topk(positions, q_pos, k, self_start=None):
     0 (`knn_bruteforce_kernel.cc:65-68`), which float error in the matmul
     identity would otherwise not preserve.
     """
-    # Squared L2 via the matmul identity — one MXU contraction per chunk.
+    # Squared L2 via the matmul identity — one contraction per chunk.
     # d2[b, q, n] = |q|^2 - 2 q.n + |n|^2
     qn = jnp.einsum(
         "bqd,bnd->bqn", q_pos, positions, precision="highest", preferred_element_type=jnp.float32
@@ -52,58 +48,21 @@ def _chunk_topk(positions, q_pos, k, self_start=None):
     return idx.astype(jnp.int32), jnp.maximum(-neg_d2, 0.0)
 
 
-def _use_pallas(impl):
-    if impl == "auto":
-        return jax.default_backend() == "tpu"
-    return impl == "pallas"
-
-
-def knn_bruteforce(positions, k, chunk=None, impl="auto", mode="exact",
-                   window=None):
+@functools.partial(jax.jit, static_argnames=("k", "chunk"))
+def knn_bruteforce(positions, k, chunk=None):
     """K nearest neighbors of every point within its own cloud.
 
     Args:
       positions: [B, N, Dp] float array of point coordinates (channel-last;
         the reference op takes [B, Dp, N], `user_ops/ops/knn_bruteforce.cc`).
       k: neighborhood size (k=0 is the query point itself).
-      chunk: query-chunk size for the XLA path; bounds peak memory at
-        B*chunk*N*4 bytes.
-      impl: 'auto' (Pallas streaming-min kernel on TPU, chunked XLA
-        matmul+top_k elsewhere), 'pallas', or 'xla'.
-      mode: 'exact' (reference parity) or 'fast' (packed value+index min:
-        ~1.6x faster; indices exact except among distances equal to within
-        ~0.1%% relative, distances truncated to ~10 mantissa bits — the
-        model's internal knn calls use this since only indices feed the
-        graph).
-      window: if set (Morton fast path), restrict candidates to the
-        `window`-row Z-order band around each query tile — approximate
-        kNN whose indices are in-band by construction for the banded
-        neighborhood kernels (~96%% of true k=8 neighbors are in a
-        512-row band on Oxford clouds; the rest get the nearest in-band
-        candidates).  Requires Morton-sorted input, N %% 256 == 0.
+      chunk: query-chunk size; bounds peak memory at B*chunk*N*4 bytes.
 
     Returns:
       (indices [B, N, k] int32, distances [B, N, k] float) — ascending by
       distance; distances are Euclidean (sqrt), matching
       `knn_bruteforce_kernel.cc:52`.
     """
-    if _use_pallas(impl) and positions.shape[-1] == 3:
-        from dh3d_tpu.ops.pallas.knn_pallas import knn_banded, knn_pallas
-
-        if window is not None and positions.shape[1] % 256 == 0 \
-                and window <= positions.shape[1]:
-            idx, d2 = knn_banded(positions, positions, k, window=window,
-                                 packed=(mode == "fast"))
-        else:
-            idx, d2 = knn_pallas(positions, positions, k,
-                                 packed=(mode == "fast"),
-                                 self_query=True)
-        return idx, jnp.sqrt(d2)
-    return _knn_xla(positions, k, chunk)
-
-
-@functools.partial(jax.jit, static_argnames=("k", "chunk"))
-def _knn_xla(positions, k, chunk=None):
     B, N, _ = positions.shape
     if chunk is None:
         target = (64 * 1024 * 1024) // 4
@@ -131,20 +90,12 @@ def _knn_xla(positions, k, chunk=None):
     return idx, jnp.sqrt(d2)
 
 
-def knn_bruteforce_pairwise(query, reference, k, impl="auto"):
+def knn_bruteforce_pairwise(query, reference, k):
     """K nearest points of `reference` for each point of `query` (cross-cloud).
 
     query: [B, M, D], reference: [B, N, D] -> (idx [B, M, k], dist [B, M, k]).
     Generalization used by eval-time matching; the reference computes this on
     the host with sklearn (`core/utils.py:53-57`).
     """
-    from dh3d_tpu.ops.flex import _mixed_tracer_const
-
-    if (_use_pallas(impl) and query.shape[-1] == 3
-            and not _mixed_tracer_const(query, reference)):
-        from dh3d_tpu.ops.pallas.knn_pallas import knn_pallas
-
-        idx, d2 = knn_pallas(query, reference, k)
-        return idx, jnp.sqrt(d2)
     idx, d2 = _chunk_topk(reference, query, k)
     return idx, jnp.sqrt(d2)

@@ -1,6 +1,5 @@
 from dh3d_tpu.parallel.mesh import (  # noqa: F401
     data_parallel_mesh,
-    multihost_mesh,
     replicate_spec,
     shard_batch_spec,
 )

@@ -1,23 +1,13 @@
 """Device-mesh utilities for data-parallel training.
 
 The reference has no distributed backend at all (SURVEY.md §2.3 — single
-GPU `SimpleTrainer`, `train.py:75`).  Parallelism here is greenfield and
-TPU-native: a 1-D `data` mesh, batch (the tuple-flattened cloud axis)
-sharded across it, parameters replicated.  The train step is an ordinary
-`jax.jit` with sharding annotations — XLA inserts the gradient psum and
-cross-device BatchNorm reductions over ICI automatically (global-view
-semantics), so batch-norm is effectively sync-BN across the mesh for free.
-
-Multi-slice / multi-host (DCN) scaling uses the same global-view step on
-a 2-axis mesh `("dcn", "data")` from `multihost_mesh`: the batch shards
-over the PRODUCT of both axes and parameters replicate over both, so the
-gradient reduction XLA inserts is hierarchical — reduce-scatter/all-reduce
-inside each slice over ICI first, then the (much smaller) cross-slice sum
-over DCN.  Nothing in the model or losses names a mesh axis (global-view),
-so the same train step runs unchanged on either mesh; only the device_put
-shardings from `shard_batch` differ.  Since point clouds fit on one chip,
-DCN never carries activations — only gradients/params — which is exactly
-the regime DCN bandwidth supports.
+GPU `SimpleTrainer`, `train.py:75`).  Parallelism here: a 1-D `data` mesh
+(the cards of one host are joined all to all, so the mesh follows the
+algorithm alone), batch (the tuple-flattened cloud axis) sharded across
+it, parameters replicated.  The train step is an ordinary `jax.jit` with
+sharding annotations — XLA inserts the gradient all-reduce and the
+cross-device BatchNorm reductions (global-view semantics), so batch-norm
+is sync-BN across the mesh for free.
 """
 
 from __future__ import annotations
@@ -37,24 +27,6 @@ def data_parallel_mesh(n_devices: int | None = None) -> Mesh:
             f"requested {n_devices} devices, have {len(devices)}"
         )
     return Mesh(np.array(devices[:n_devices]), axis_names=("data",))
-
-
-def multihost_mesh(n_slices: int, per_slice: int | None = None) -> Mesh:
-    """2-axis `("dcn", "data")` mesh: `n_slices` groups of `per_slice`
-    devices.  On real multi-slice hardware, devices within a row share
-    ICI and rows communicate over DCN (jax orders `jax.devices()` by
-    (slice, on-slice id), so the reshape maps rows to slices); on a CPU
-    test mesh it exercises the same 2-axis shardings."""
-    devices = jax.devices()
-    if per_slice is None:
-        per_slice = len(devices) // n_slices
-    need = n_slices * per_slice
-    if need > len(devices):
-        raise ValueError(
-            f"requested {n_slices}x{per_slice} devices, have {len(devices)}"
-        )
-    arr = np.array(devices[:need]).reshape(n_slices, per_slice)
-    return Mesh(arr, axis_names=("dcn", "data"))
 
 
 def _batch_axes(mesh: Mesh):

@@ -2,10 +2,10 @@
 
 The reference's "long context" axis is the cloud size N: its GPU knn op
 caps at 8192 and falls back to host sklearn (`core/model.py:38,84-96`).
-Our Pallas kernel removes the cap on one chip; for clouds too large even
+The chunked kNN removes the cap on one card; for clouds too large even
 for that (memory or latency), this shards the POINT axis across the mesh:
-each device holds a query shard, all-gathers the (small, 3-D) coordinates
-over ICI, and runs the local exact kNN — returning globally-indexed
+each device holds a query shard, all-gathers the (small, 3-D) coordinates,
+and runs the local exact kNN — returning globally-indexed
 neighborhoods, still one jit region.  This is the only place anything
 CP/ring-like enters this model family (SURVEY.md §5).
 """
@@ -41,7 +41,7 @@ def knn_sharded(positions, k, mesh: Mesh, axis: str = "data"):
         out_specs=(P(None, axis, None), P(None, axis, None)),
     )
     def _local(pos_local):
-        # coordinates are tiny (N*12 bytes) — one all-gather over ICI gives
+        # coordinates are tiny (N*12 bytes) — one all-gather gives
         # every device the full key set
         keys = jax.lax.all_gather(pos_local, axis, axis=1, tiled=True)
         offset = jax.lax.axis_index(axis) * local_n

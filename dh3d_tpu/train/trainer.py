@@ -9,20 +9,23 @@ configs `freezebackbone/freezedetection/freezeglobal`), warm start with
 shape-mismatch tolerance (`train.py:52-53` SmartInit), periodic ModelSaver
 (`train.py:35-38`).
 
-TPU-native realization: one `jax.jit`-compiled step over a data-parallel
-mesh (batch sharded, params replicated — XLA emits the grad all-reduce);
-freezing via `optax.multi_transform` masks + running-average BN for frozen
-trunks (the model handles the latter); orbax for checkpoints.
+Realization: one `jax.jit`-compiled step over a data-parallel mesh (batch
+sharded, params replicated — XLA emits the grad all-reduce); freezing via
+`optax.multi_transform` masks + running-average BN for frozen trunks (the
+model handles the latter); `.npz` files keyed by variable path for
+checkpoints.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import os
 from typing import Any, Dict, Optional
 
-import flax
 import jax
 import jax.numpy as jnp
+import numpy as np
 import optax
 
 from dh3d_tpu.config import dotdict
@@ -30,13 +33,19 @@ from dh3d_tpu.losses import compute_total_loss
 from dh3d_tpu.nn import DH3D
 
 
-@flax.struct.dataclass
+@functools.partial(jax.tree_util.register_dataclass,
+                   data_fields=["step", "params", "batch_stats", "opt_state"],
+                   meta_fields=["tx"])
+@dataclasses.dataclass(frozen=True)
 class TrainState:
     step: jnp.ndarray
     params: Any
     batch_stats: Any
     opt_state: Any
-    tx: optax.GradientTransformation = flax.struct.field(pytree_node=False)
+    tx: optax.GradientTransformation  # static: part of the jit cache key
+
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
 
     def apply_gradients(self, grads, new_batch_stats):
         updates, new_opt = self.tx.update(grads, self.opt_state, self.params)
@@ -89,7 +98,7 @@ def param_labels(cfg, params):
             return {k: label_tree(v, top if top else k) for k, v in tree.items()}
         return "frozen" if top in frozen_tops else "trainable"
 
-    return label_tree(flax.core.unfreeze(params), None)
+    return label_tree(params, None)
 
 
 def make_optimizer(cfg, params):
@@ -122,18 +131,14 @@ def kernel_l2(params):
     return total
 
 
-def init_state(cfg, rng, sample_batch) -> TrainState:
-    """Initialize model + optimizer from one example batch.
-
-    Variables come from `nn.init_variables` — the cheap small-N gather-
-    graph init (param/batch-stats shapes are N- and routing-independent;
-    jitting init over the full Morton graph hits a minutes-long XLA
-    fusion pathology on DCE-reduced graphs, docs/PERF_NOTES.md)."""
+def init_state(cfg, rng, sample_batch=None) -> TrainState:
+    """Initialize model + optimizer.  Variable shapes follow from the
+    config alone (`nn.init_variables`); `sample_batch` is not needed."""
     from dh3d_tpu.nn import init_variables
 
     variables = init_variables(cfg, rng)
     params = variables["params"]
-    batch_stats = variables.get("batch_stats", flax.core.freeze({}))
+    batch_stats = variables["batch_stats"]
     tx = make_optimizer(cfg, params)
     return TrainState(
         step=jnp.zeros((), jnp.int32),
@@ -178,7 +183,7 @@ def loss_and_updates(params, batch_stats, batch, cfg, model):
 
     points = batch["points"]
     if cfg.augment_on_device and "aug_key" in batch:
-        # TPU-native augmentation: the reference jitters/rotates per cloud
+        # on-device augmentation: the reference jitters/rotates per cloud
         # on the host (`core/datasets.py:122-124`); here it runs inside the
         # jitted step.  Only valid when clouds are independent (global
         # training) — the local self-pair correspondence warp R is built
@@ -196,18 +201,11 @@ def loss_and_updates(params, batch_stats, batch, cfg, model):
         points,
         sample_inds=batch.get("sample_inds"),
         train=True,
-        mutable=["batch_stats", "diagnostics"],
+        mutable=["batch_stats"],
     )
     if "R" in batch:
         outs["R"] = batch["R"]
     total, metrics = compute_total_loss(outs, cfg, kernel_l2(params))
-    # exactness invariant (nn/model.py): total out-of-band plan entries
-    # dropped across every neighborhood level this step — the train loop
-    # fails on nonzero (check_oob_overflow); always present so metrics
-    # keep one jit-stable structure across morton/gather configs.
-    diag = jax.tree_util.tree_leaves(mutated.get("diagnostics", {}))
-    metrics["oob_overflow"] = sum(
-        (jnp.sum(x) for x in diag), jnp.zeros((), jnp.int32))
     return total, (metrics, mutated["batch_stats"])
 
 
@@ -220,10 +218,6 @@ def make_train_step(cfg, model=None, donate=False):
     """
     model = model or DH3D(cfg)
     cfg = dotdict(dict(cfg))
-    # cfg.fast_grads (single-bf16-plane moments backward) is threaded
-    # through the model as a static kernel argument (nn/model.py ->
-    # ops.flex_conv(bwd_lo=...)) — no process-level state; two models in
-    # one process can trace different settings.
 
     @functools.partial(jax.jit, donate_argnums=(0,) if donate else ())
     def train_step(state: TrainState, batch: Dict[str, jnp.ndarray]):
@@ -235,31 +229,6 @@ def make_train_step(cfg, model=None, donate=False):
         return new_state, metrics
 
     return train_step
-
-
-def check_oob_overflow(metrics, step=None):
-    """Fail fast when the exact-Morton plans dropped entries this step.
-
-    `metrics['oob_overflow']` (emitted by every train step) counts
-    out-of-band plan entries beyond the static capacity across all
-    neighborhood levels; nonzero means neighbor contributions were
-    silently omitted and the 'exact' default has degraded to approximate
-    (nn/model.py).  Zero on real Morton-sorted clouds — the demo-cloud
-    ceiling is ~3x under the default capacity (oob_plan docstring)."""
-    v = metrics.get("oob_overflow")
-    if v is None:
-        return 0
-    v = int(v)
-    if v:
-        raise RuntimeError(
-            f"oob_overflow={v}"
-            + (f" at step {step}" if step is not None else "")
-            + ": exact-Morton plan capacity exceeded — neighbor "
-            "contributions dropped.  Raise cfg.oob_cap_scale (multiplies "
-            "every level's plan capacity; banded_pallas.py:oob_plan) for "
-            "this data, or presort/inspect the offending clouds."
-        )
-    return v
 
 
 def make_eval_step(cfg, model=None):
@@ -283,20 +252,15 @@ def smart_init(init_params, loaded_params):
     loaded params into freshly initialized ones wherever path AND shape
     match; new variables keep their fresh init — this is how the 3-stage
     curriculum hands off (local -> +detector -> global)."""
-    # keep plain dicts throughout — the optimizer state was built against
-    # the plain-dict params treedef, and flax no longer requires FrozenDict
-    init_params = jax.tree_util.tree_map(lambda x: x,
-                                         flax.core.unfreeze(init_params))
-    loaded_params = flax.core.unfreeze(loaded_params)
+    init_params = jax.tree_util.tree_map(lambda x: x, init_params)
     n_loaded = [0]
 
     def merge(dst, src):
         for k, v in src.items():
             if k not in dst:
                 continue
-            if isinstance(v, (dict, flax.core.FrozenDict)) and \
-                    isinstance(dst[k], dict):
-                merge(dst[k], dict(v))
+            if isinstance(v, dict) and isinstance(dst[k], dict):
+                merge(dst[k], v)
             elif hasattr(v, "shape") and hasattr(dst[k], "shape"):
                 if v.shape == dst[k].shape:
                     dst[k] = v
@@ -306,130 +270,119 @@ def smart_init(init_params, loaded_params):
     return init_params, n_loaded[0]
 
 
-# ------------------------- checkpointing (orbax) -------------------------
+# ----------------------------- checkpointing -----------------------------
 #
 # The reference checkpoints via tensorpack ModelSaver every
 # `savemodel_every_k_steps` (`train.py:35-38`); full-state checkpoints here
-# additionally carry the optimizer state so training resumes exactly.
+# additionally carry the optimizer state so training resumes exactly.  One
+# `.npz` per checkpoint, keyed by variable path ("params/a/b/kernel",
+# "batch_stats/...", "step", and "opt_state" + the optimizer leaf's tree
+# path) — the format of the committed `models/*.npz`.
+
+def flatten_tree(tree, prefix, out):
+    """Nested dicts -> {"prefix/a/b": leaf} (numpy) into `out`."""
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            flatten_tree(v, key, out)
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def _opt_leaves(opt_state):
+    return [("opt_state" + jax.tree_util.keystr(path), leaf)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(opt_state)]
+
 
 def save_checkpoint(ckpt_dir: str, state: TrainState,
                     step: Optional[int] = None, include_opt: bool = True):
-    import orbax.checkpoint as ocp
-
-    ckptr = ocp.StandardCheckpointer()
+    """Write `<ckpt_dir>/step_<step>.npz`; returns its path."""
     step = int(state.step) if step is None else step
-    path = f"{ckpt_dir}/step_{step:08d}"
-    payload = {
-        "params": jax.device_get(flax.core.unfreeze(state.params)),
-        "batch_stats": jax.device_get(flax.core.unfreeze(state.batch_stats)),
-        "step": jax.device_get(state.step),
-    }
+    flat = {"step": np.asarray(jax.device_get(state.step))}
+    flatten_tree(jax.device_get(state.params), "params", flat)
+    flatten_tree(jax.device_get(state.batch_stats), "batch_stats", flat)
     if include_opt:
-        # flatten the optax state (it contains namedtuple nodes orbax can't
-        # round-trip structurally); the treedef is rebuilt from a fresh
-        # state on restore
-        payload["opt_leaves"] = [
-            jax.device_get(x) for x in jax.tree_util.tree_leaves(state.opt_state)
-        ]
-    ckptr.save(path, payload)
-    ckptr.wait_until_finished()
+        for key, leaf in _opt_leaves(state.opt_state):
+            flat[key] = np.asarray(jax.device_get(leaf))
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)  # a crash mid-write leaves no truncated file
     return path
 
 
 def resolve_model(path: str):
     """Load a trained model from either surface the framework produces:
-    a training logdir (config.json + ckpt/step_* orbax dirs) or a packaged
+    a training logdir (config.json + ckpt/step_*.npz) or a packaged
     `<stem>.npz` + `<stem>.config.json` pair (scripts/package_checkpoint.py).
 
     Returns (cfg, variables) ready for `DH3D(cfg).apply(variables, ...)` —
     the load pattern every eval CLI shares (the reference reads its
     config.json the same way, `globaldesc_extract.py:51-58`)."""
-    import os
-
     from dh3d_tpu import config as cfglib
 
     if path.endswith(".npz") or os.path.isfile(path + ".npz"):
         stem = path[:-4] if path.endswith(".npz") else path
         cfg = cfglib.load_config(stem + ".config.json")
-        loaded = load_npz_checkpoint(stem + ".npz")
+        loaded = load_checkpoint(stem + ".npz")
     else:
         cfg = cfglib.load_config(os.path.join(path, "config.json"))
-        ckpts = sorted(
-            d for d in os.listdir(os.path.join(path, "ckpt"))
-            if d.startswith("step_"))
-        loaded = load_checkpoint(os.path.join(path, "ckpt", ckpts[-1]))
+        loaded = load_checkpoint(latest_checkpoint(path))
     variables = {"params": loaded["params"],
                  "batch_stats": loaded["batch_stats"]}
     return cfg, variables
 
 
-def load_npz_checkpoint(path: str):
-    """Load a repo-committed .npz checkpoint (scripts/package_checkpoint.py)
-    back into {"params": ..., "batch_stats": ..., "step": ...} nested dicts
-    — the same shape `load_checkpoint` returns for an orbax directory."""
-    import numpy as np
+def latest_checkpoint(logdir: str) -> str:
+    ckpt = os.path.join(logdir, "ckpt")
+    steps = sorted(f for f in os.listdir(ckpt)
+                   if f.startswith("step_") and f.endswith(".npz")
+                   and not f.endswith(".tmp.npz"))
+    if not steps:
+        raise FileNotFoundError(f"no step_*.npz checkpoint in {ckpt}")
+    return os.path.join(ckpt, steps[-1])
 
+
+def load_checkpoint(path: str):
+    """Load a `.npz` checkpoint into {"params", "batch_stats", "step"}
+    nested dicts, plus the flat optimizer leaves under "opt_state" when
+    the file has them."""
     flat = np.load(path)
-    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}, "opt_state": {}}
     for key in flat.files:
         if key == "step":
             out["step"] = int(flat[key])
-            continue
-        parts = key.split("/")
-        node = out
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = flat[key]
+        elif key.startswith("opt_state"):
+            out["opt_state"][key] = flat[key]
+        else:
+            parts = key.split("/")
+            node = out
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = flat[key]
     return out
 
-
-def load_checkpoint(path: str, target=None):
-    """Restore a checkpoint; `target` (an abstract pytree of
-    jax.ShapeDtypeStruct) silences orbax's "target tree not provided"
-    sharding warning and validates structure/shapes on restore."""
-    import orbax.checkpoint as ocp
-
-    ckptr = ocp.StandardCheckpointer()
-    if target is None:
-        return ckptr.restore(path)
-    return ckptr.restore(path, target)
-
-
-def _abstract_tree(tree):
-    return jax.tree_util.tree_map(
-        lambda x: jax.ShapeDtypeStruct(jnp.shape(x), jnp.result_type(x)),
-        tree,
-    )
 
 
 def restore_state(path: str, state: TrainState) -> TrainState:
     """Exact-resume restore into a freshly initialized TrainState (same
-    config): params, batch stats, step, and optimizer state."""
-    target = {
-        "params": _abstract_tree(flax.core.unfreeze(state.params)),
-        "batch_stats": _abstract_tree(
-            flax.core.unfreeze(state.batch_stats)),
-        "step": jax.ShapeDtypeStruct((), jnp.int32),
-        "opt_leaves": [
-            jax.ShapeDtypeStruct(jnp.shape(x), jnp.result_type(x))
-            for x in jax.tree_util.tree_leaves(state.opt_state)
-        ],
-    }
-    try:
-        loaded = load_checkpoint(path, target)
-    except BaseException:
-        # checkpoint written with include_opt=False (or an older layout):
-        # fall back to structure-free restore
-        loaded = load_checkpoint(path)
+    config): params, batch stats, step, and optimizer state when the
+    checkpoint has it."""
+    loaded = load_checkpoint(path)
+    as_like = lambda new, old: jax.tree_util.tree_map(
+        lambda n, o: jnp.asarray(n, o.dtype), new, old)
     new = state.replace(
-        params=loaded["params"],
-        batch_stats=loaded["batch_stats"],
+        params=as_like(loaded["params"], state.params),
+        batch_stats=as_like(loaded["batch_stats"], state.batch_stats),
         step=jnp.asarray(loaded["step"], jnp.int32),
     )
-    if "opt_leaves" in loaded:
+    if loaded["opt_state"]:
+        keys = _opt_leaves(state.opt_state)
         treedef = jax.tree_util.tree_structure(state.opt_state)
-        leaves = [jnp.asarray(x) for x in loaded["opt_leaves"]]
+        leaves = [jnp.asarray(loaded["opt_state"][key], jnp.result_type(x))
+                  for key, x in keys]
         new = new.replace(
-            opt_state=jax.tree_util.tree_unflatten(treedef, leaves)
-        )
+            opt_state=jax.tree_util.tree_unflatten(treedef, leaves))
     return new

@@ -27,6 +27,10 @@ def main():
     p.add_argument("--eval_recall", action="store_true")
     args = p.parse_args()
 
+    from dh3d_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from dh3d_tpu import train as trainlib
     from dh3d_tpu.data import GlobalTestDataset
     from dh3d_tpu.eval import (

@@ -8,7 +8,7 @@ config.json from the model dir (the eval-time source of truth,
 runs the jitted forward over all .bin clouds in --pcdpath, and saves dense
 maps (--save_all) or NMS keypoints ([xyz|desc|att] rows).
 
-With no N<=8192 knn cap on TPU the host-knn input path is unnecessary, but
+With no N<=8192 knn cap here the host-knn input path is unnecessary, but
 --host_knn forces it for parity testing.
 """
 
@@ -38,6 +38,10 @@ def main():
     p.add_argument("--nms_min_ratio", type=float, default=0.01)
     p.add_argument("--nms_max_kp", type=int, default=512)
     args = p.parse_args()
+
+    from dh3d_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax
 

@@ -49,6 +49,10 @@ def main():
     p.add_argument("--ransac_iters", type=int, default=500)
     args = p.parse_args()
 
+    from dh3d_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import jax
 
     from dh3d_tpu.data import GlobalTestDataset

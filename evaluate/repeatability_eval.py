@@ -39,12 +39,6 @@ def build_extract_fn(model_path, num_points):
     cfg.sampled_kpnum = -1
     cfg.input_R = False
     cfg.extract_global = False
-    # Eval clouds here are NOT host-presorted; a checkpoint trained with
-    # morton_presorted would otherwise skip the in-graph Z-order sort and
-    # run banded kNN over an arbitrary index order.  The non-presorted
-    # morton path sorts in-graph and unpermutes — exact and
-    # order-invariant — so force it at eval time.
-    cfg.morton_presorted = False
     if not cfg.detection:
         raise SystemExit(
             f"{model_path} has no detector (cfg.detection is falsy) — "
@@ -72,6 +66,10 @@ def main():
     p.add_argument("--radius", type=float, default=0.5)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args()
+
+    from dh3d_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from dh3d_tpu.data.io import get_fixednum_pcd, load_single_pcfile
     from dh3d_tpu.eval.repeatability import (

@@ -1,9 +1,9 @@
 """Package a trained checkpoint into a repo-committable .npz.
 
 The fidelity gate (`tests/test_demo_data.py`) needs a trained model inside
-the repository.  An orbax checkpoint directory is unwieldy for git; this
-flattens params + batch_stats (f32, exact — the gate thresholds assume the
-eval-time numerics of training) into one compressed npz next to the
+the repository.  A training checkpoint also carries the optimizer state;
+this keeps params + batch_stats (f32, exact — the gate thresholds assume
+the eval-time numerics of training) in one compressed npz next to the
 config.json that produced it.
 
 The stage-3 checkpoint contains the ENTIRE model: stage-3 training freezes
@@ -16,7 +16,7 @@ Usage:
   python scripts/package_checkpoint.py --ckpt /tmp/curriculum/seed0/stage3 \
       --out models/demo_stage3
 Produces <out>.npz and <out>.config.json.
-Load with `dh3d_tpu.train.load_npz_checkpoint`.
+Load with `dh3d_tpu.train.resolve_model`.
 """
 
 import argparse
@@ -26,36 +26,26 @@ import os
 import numpy as np
 
 
-def flatten(tree, prefix, out):
-    for k, v in tree.items():
-        key = f"{prefix}/{k}" if prefix else k
-        if isinstance(v, dict):
-            flatten(v, key, out)
-        else:
-            out[key] = np.asarray(v)
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt", required=True,
                     help="stage logdir (contains config.json + ckpt/) or a "
-                         "direct orbax step dir")
+                         "step_*.npz checkpoint")
     ap.add_argument("--out", required=True, help="output path stem")
     args = ap.parse_args()
 
-    from dh3d_tpu.train import load_checkpoint
+    from dh3d_tpu.train import flatten_tree, latest_checkpoint, load_checkpoint
 
     path = args.ckpt
     cfg_json = None
     if os.path.isdir(os.path.join(path, "ckpt")):
         cfg_json = os.path.join(path, "config.json")
-        steps = sorted(os.listdir(os.path.join(path, "ckpt")))
-        path = os.path.join(path, "ckpt", steps[-1])
+        path = latest_checkpoint(path)
     loaded = load_checkpoint(os.path.abspath(path))
 
     flat = {}
-    flatten(loaded["params"], "params", flat)
-    flatten(loaded.get("batch_stats", {}), "batch_stats", flat)
+    flatten_tree(loaded["params"], "params", flat)
+    flatten_tree(loaded["batch_stats"], "batch_stats", flat)
     flat["step"] = np.asarray(loaded.get("step", 0))
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     np.savez_compressed(args.out + ".npz", **flat)

@@ -1,5 +1,5 @@
 """Numpy oracles: direct transcriptions of the reference CPU kernels' loop
-semantics (channel-last layout), used as ground truth for the TPU ops.
+semantics (channel-last layout), used as ground truth for the JAX ops.
 
 Each function mirrors one CPU reference kernel cited in its docstring; they
 are deliberately written as naive loops so the test suite checks our fused

@@ -39,7 +39,7 @@ def demo_sets(tmp_path_factory):
     from dh3d_tpu.eval import extract_global, load_sets_from_dir
     from dh3d_tpu.nn import DH3D
 
-    N = 1024  # keep CPU runtime sane; full 8192 is the TPU drive's job
+    N = 1024  # keep CPU runtime sane; full 8192 is the card's job
     cfg = cfglib.get_config("global_config")
     cfg.num_points = N
     model = DH3D(cfg)

@@ -183,8 +183,10 @@ def test_extract_and_retrieve_roundtrip(tmp_path, rng):
     cfg.num_points = N
     model = DH3D(cfg)
     pts = rng.randn(1, N, 3).astype(np.float32) * 5
+    # key 1: with key 0's draws the untrained attention head saturates at
+    # 0 on one cloud, which zeroes its NetVLAD descriptor
     variables = jax.jit(lambda k, p: model.init(k, p, train=False))(
-        jax.random.PRNGKey(0), pts)
+        jax.random.PRNGKey(1), pts)
 
     names = ["seqA/1", "seqA/2", "seqB/1"]
     clouds = [rng.randn(N, 3).astype(np.float32) * 5 for _ in names]
@@ -240,7 +242,7 @@ def test_repeatability_curve_synthetic(rng):
 
 def test_nms_keypoint_indices_backends_agree(rng):
     """Driver-level NMS entry: device backend (default in the extraction
-    drivers) selects the same keypoints as the sklearn host path, enforced
+    drivers) selects the same keypoints as the host path, enforced
     by its own parity_check."""
     from dh3d_tpu.eval.nms import nms_keypoint_indices
 
@@ -255,7 +257,7 @@ def test_repeatability_pairs_protocol(rng):
     """GT-pose-pair repeatability on partial-overlap crops: a
     rigid-invariant detector (local density) must be highly repeatable in
     the shared region, and the warp math must use the provided GT pose."""
-    from sklearn.neighbors import NearestNeighbors
+    from scipy.spatial import cKDTree
 
     from dh3d_tpu.eval.repeatability import (
         make_partial_overlap_pairs,
@@ -275,8 +277,7 @@ def test_repeatability_pairs_protocol(rng):
     assert np.median(d.min(axis=1)) < 1.0  # overlap exists under GT pose
 
     def extract(cloud):
-        nbrs = NearestNeighbors(n_neighbors=9).fit(cloud)
-        dist, _ = nbrs.kneighbors(cloud)
+        dist, _ = cKDTree(cloud).query(cloud, k=9)
         att = 1.0 / (1e-3 + dist[:, -1])  # local density (rigid-invariant)
         return cloud, att / att.max()
 

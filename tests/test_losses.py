@@ -247,7 +247,7 @@ def test_batch_hard_all_gather_matches_single_device(rng):
     from jax.experimental.shard_map import shard_map
 
     if jax.local_device_count() < 8:
-        pytest.skip("needs the 8-device CPU mesh (single-chip TPU run)")
+        pytest.skip("needs the 8-device CPU mesh")
 
     from dh3d_tpu.parallel import data_parallel_mesh
 

@@ -16,8 +16,7 @@ from dh3d_tpu.parallel.mesh import replicate, shard_batch
 N = 64
 KP = 8
 
-# mesh tests need the virtual 8-device CPU mesh (tests/conftest.py); a
-# single-chip TPU run of the suite skips them
+# mesh tests need the virtual 8-device CPU mesh (tests/conftest.py)
 requires_mesh = pytest.mark.skipif(
     jax.local_device_count() < 8,
     reason="needs the 8-device CPU mesh (single-chip run)")
@@ -347,50 +346,6 @@ def test_threaded_prefetcher():
     import pytest as _pytest
     with _pytest.raises(ValueError, match="source failed"):
         next(it)
-
-
-@requires_mesh
-def test_multihost_mesh_train_step(rng):
-    """One DP step on a 2-axis ("dcn", "data") 2x4 mesh: batch sharded
-    over the axis product, params replicated over both — the multi-slice
-    (DCN) production sharding; result must match single-device."""
-    from dh3d_tpu.parallel import multihost_mesh
-
-    cfg = small_cfg()
-    cfg.sampled_kpnum = KP
-    batch = make_local_batch(rng, B=4)  # 8 clouds -> 1 per device
-    state = trainlib.init_state(cfg, jax.random.PRNGKey(0), batch)
-    step = trainlib.make_train_step(cfg)
-    s1, m1 = step(state, batch)
-
-    mesh = multihost_mesh(2, 4)
-    assert mesh.axis_names == ("dcn", "data") and mesh.shape["dcn"] == 2
-    with jax.sharding.set_mesh(mesh):
-        sharded_batch = shard_batch(mesh, batch)
-        rep_state = replicate(mesh, state)
-        s2, m2 = step(rep_state, sharded_batch)
-        np.testing.assert_allclose(
-            float(m1["total_cost"]), float(m2["total_cost"]), rtol=1e-4
-        )
-
-
-def test_oob_overflow_metric_and_check(rng):
-    """Every train step emits the oob_overflow exactness metric (0 when no
-    plan drops / no plans at all), and check_oob_overflow fails loudly on
-    a nonzero count — the invariant nn/model.py documents."""
-    cfg = small_cfg()
-    batch = make_local_batch(rng)
-    state = trainlib.init_state(cfg, jax.random.PRNGKey(0), batch)
-    step = trainlib.make_train_step(cfg)
-    _, metrics = step(state, batch)
-    assert "oob_overflow" in metrics
-    assert int(metrics["oob_overflow"]) == 0
-    assert trainlib.check_oob_overflow(
-        {k: float(v) for k, v in metrics.items()}) == 0
-    # missing key (non-plan config) is a no-op, nonzero raises
-    assert trainlib.check_oob_overflow({}) == 0
-    with pytest.raises(RuntimeError, match="oob_overflow=7"):
-        trainlib.check_oob_overflow({"oob_overflow": 7.0}, step=3)
 
 
 def test_reproduce_ref_detloss_bug_toggle(rng):

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Training driver: `python train.py --cfg=basic_config` — the reference
-CLI surface (`train.py:58-75`) on top of the TPU-native stack.
+CLI surface (`train.py:58-75`) on top of the JAX stack.
 
 Differences from the reference trainer (tensorpack SimpleTrainer):
-one jitted train step over a data-parallel mesh, orbax checkpoints every
+one jitted train step over a data-parallel mesh, `.npz` checkpoints every
 `savemodel_every_k_steps` (`core/configs.py:84`), config.json dumped into
 the logdir as the eval-time source of truth (`core/utils.py:71-84`),
 warm start with shape-mismatch tolerance via --load (`train.py:52-53`).
@@ -136,16 +136,18 @@ def main():
                         metavar="KEY=VALUE",
                         help="override any config key (JSON-parsed value),"
                              " e.g. --set grad_clip_norm=1.0 "
-                             "--set morton_order=true")
+                             "--set morton_order=false")
     args = parser.parse_args()
 
     import jax
 
     from dh3d_tpu import config as cfglib
     from dh3d_tpu import train as trainlib
+    from dh3d_tpu.compile_cache import enable_compile_cache
     from dh3d_tpu.parallel import data_parallel_mesh
     from dh3d_tpu.parallel.mesh import replicate, shard_batch
 
+    enable_compile_cache()
     cfg = cfglib.get_config(args.cfg)
     for key in ("data_basedir", "num_points", "batch_size"):
         if getattr(args, key) is not None:
@@ -219,10 +221,6 @@ def main():
                 jax.profiler.stop_trace()
             if i % 50 == 0 or i == start + args.steps - 1:
                 m = {k: round(float(v), 5) for k, v in metrics.items()}
-                # exactness invariant: fail loudly if any neighborhood
-                # plan dropped entries (checked at every readback point —
-                # per-step host syncs would serialize the device queue)
-                trainlib.check_oob_overflow(m, step=i)
                 m["step"] = i
                 m["wall_s"] = round(time.time() - t0, 1)
                 print(f"step {i}: {json.dumps(m)}", flush=True)
